@@ -4,18 +4,26 @@ Each library is compiled on first use into ``gpismap_tpu_torch/build/``
 (listed in .gitignore, never committed) and rebuilt when its source is
 newer. The compiler writes a per-process temporary file that is renamed
 into place, so concurrent test workers never load a half-written library.
+Different libraries may build at the same time (one lock per library).
 """
 from __future__ import annotations
 
 import os
 import subprocess
 import threading
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 REPO_DIR = os.path.dirname(PKG_DIR)
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-_LOCK = threading.Lock()
+# argv of nvcc for the CUDA kernels (plain C interface, loaded by ctypes);
+# -Xptxas -v reports registers, shared memory and spills
+NVCC = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                     "nvcc"),
+        "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
+_LOCKS: Dict[str, threading.Lock] = {}
+_LOCKS_LOCK = threading.Lock()
 
 
 def build(src: str, name: str, compiler: List[str]) -> Tuple[str, str]:
@@ -23,7 +31,9 @@ def build(src: str, name: str, compiler: List[str]) -> Tuple[str, str]:
     output and source). Returns (library path, compiler output; "" when
     the library was already up to date)."""
     out = os.path.join(BUILD_DIR, name)
-    with _LOCK:
+    with _LOCKS_LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if (os.path.exists(out)
                 and os.path.getmtime(out) >= os.path.getmtime(src)):
             return out, ""

@@ -4,7 +4,8 @@ Port of gpismap_tpu/api.py:GPisMap2D (the default, non-strict path). A
 host orchestrator that drives:
   * the native spatial index (csrc/gpis_index.cpp) for tree mutations
   * the per-frame tensor stages (models/mapper2d.py) for the GP math
-  * the cluster-GP store (models/cluster.py) for test()
+  * the cluster-GP store, the node mirror and the factor cache
+    (models/cluster.py) for the retrain and test()
 on one torch device.
 """
 from __future__ import annotations
@@ -79,6 +80,8 @@ class GPisMap2D:
                                        self.grid_half, self.device)
         self.frame = 0
         self._factors = None    # cached per-cell L^-1 (linv_buf, uniq)
+        self._factors_slots = None  # the live slots the cache was filled for
+        self._mirror = None     # device node mirror (cluster.NodeMirror)
 
     def _t(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
@@ -190,17 +193,44 @@ class GPisMap2D:
         return np.concatenate([self.index.cell_nodes(c) for c in cells])
 
     # ------------------------------------------------------------------
+    def _sync_mirror(self) -> None:
+        """Scatter the nodes mutated since the last sync into the device
+        node mirror; the first call after reset() or a load seeds it with
+        every live node. Raises ValueError (from scatter_mirror) for a
+        node id at or above cap.max_nodes, the mirror's length."""
+        if self._mirror is None:
+            self._mirror = cluster.make_mirror(self.cap, self.dim,
+                                               self.device)
+            self.index.pop_dirty()          # the full seed covers them
+            nd = self.index.dump_nodes()
+            ids = np.nonzero(nd["alive"])[0].astype(np.int32)
+            nd = {k: v[ids] for k, v in nd.items()}
+        else:
+            ids = self.index.pop_dirty()
+            nd = self.index.get_nodes(ids)
+        if len(ids) == 0:
+            return
+        cluster.scatter_mirror(self._mirror, self._t(ids),
+                               self._t(nd["pos"]), self._t(nd["grad"]),
+                               self._t(nd["val"]), self._t(nd["pos_sig"]),
+                               self._t(nd["grad_sig"]))
+
     def _retrain_store(self) -> None:
         """Retrain the touched cluster GPs (GPisMap.cpp:596-663) with
         support-count size buckets: each bucket fits at its own padding,
         which masked identity rows make exactly equal to a full-padding
-        fit. The support is gathered on the host from the index."""
+        fit. The support is gathered on the device from the node mirror,
+        and the factor cache is refreshed from the fits' own Cholesky
+        factors. This is the JAX package's fused frame epilogue
+        (frame_finish_full), run as its separate stages in the same order."""
         mcap = self.cap.gp_support
         rt = self.index.collect_retrain(self.p.gp_radius_times, mcap,
                                         self.cap.retrain_batch * 16)
         b = rt["n"]
         if rt["total"] > b:
             self.stats["retrain_truncated"] = rt["total"] - b
+        self._sync_mirror()
+        fit_ls = []            # (padded slot rows, fit Cholesky factor)
         counts = rt["counts"][:b]
         assigned = np.zeros(b, bool)
         for mb in self._retrain_buckets:
@@ -216,19 +246,14 @@ class GPisMap2D:
                 sup[:len(rr)] = rt["support"][rr][:, :mb]
                 slots = np.full(chunk, -1, np.int32)
                 slots[:len(rr)] = rt["slots"][rr]
-                nd = self.index.get_nodes(sup.reshape(-1))
-                shp = sup.shape
-                self.store, _ = cluster._retrain_impl(
-                    self.store, self._t(slots), self._t(slots >= 0),
-                    self._t(nd["pos"].reshape(shp + (self.dim,))),
-                    self._t(nd["grad"].reshape(shp + (self.dim,))),
-                    self._t(nd["val"].reshape(shp)),
-                    self._t(nd["pos_sig"].reshape(shp)),
-                    self._t(nd["grad_sig"].reshape(shp)),
-                    self._t(sup >= 0), self.p.map_scale_param)
+                self.store, l = cluster.retrain_cells_from_mirror_with_l(
+                    self.store, self._mirror, self._t(slots),
+                    self._t(slots >= 0), self._t(sup),
+                    self.p.map_scale_param)
+                fit_ls.append((slots, l))
         self.index.clear_active()
         self._rebuild_grid()
-        self._factors = None
+        self._refresh_factors(fit_ls)
 
     def _rebuild_grid(self) -> None:
         """Dense cluster grid rebuilt on the device from the live cells."""
@@ -258,9 +283,9 @@ class GPisMap2D:
 
     def _get_factors(self):
         """Cached per-cell L^-1 of all live cells (the reference keeps L
-        per cell, OnGPIS.h), filled at the first test() after a retrain;
-        None (per-call factorization) when the live cells exceed the
-        cache bound."""
+        per cell, OnGPIS.h), filled at the first test() after a change of
+        the live slot set and refreshed by each retrain; None (per-call
+        factorization) when the live cells exceed the cache bound."""
         if self._factors is not None:
             return self._factors
         live = self._live_slots()
@@ -271,7 +296,31 @@ class GPisMap2D:
         self._factors = cluster.factorize_slots(
             self.store, self._t(pad), self.p.map_scale_param,
             self.cap.test_active_cells)
+        self._factors_slots = live
         return self._factors
+
+    def _refresh_factors(self, fit_ls) -> None:
+        """Factor-cache upkeep after a retrain. If the live slot set is
+        unchanged since the cache was filled, only the retrained cells'
+        factors are refreshed, from the fits' own Cholesky factors
+        (fit_ls: (padded slot rows, l) per retrain chunk; empty when
+        nothing retrained), so the next test() skips the full refill; any
+        change of the slot set (a new cell, a pruned one) drops the
+        cache."""
+        old, self._factors = self._factors, None
+        if old is None or self._factors_slots is None:
+            self._factors_slots = None
+            return
+        live = self._live_slots()
+        if (len(live) == 0 or len(live) > self.cap.test_active_cells
+                or not np.array_equal(live, self._factors_slots)):
+            self._factors_slots = None
+            return
+        linv_buf, uniq = old
+        for slots, l in fit_ls:
+            linv_buf = cluster.update_factors_from_l(
+                linv_buf, uniq, self._t(slots), l, d=self.dim)
+        self._factors = (linv_buf, uniq)
 
     # ------------------------------------------------------------------
     def _test_kwargs(self) -> dict:

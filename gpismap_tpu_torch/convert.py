@@ -30,6 +30,9 @@ def state_from_numpy(index_blob: np.ndarray, store_arrays, frame: int,
     mapper.index.deserialize(index_blob)
     mapper.store = cluster.ClusterStore(**fields)
     mapper.frame = int(frame)
+    # the next update seeds the node mirror from the loaded index
+    mapper._mirror = None
     mapper._factors = None
+    mapper._factors_slots = None
     mapper._rebuild_grid()
     return mapper

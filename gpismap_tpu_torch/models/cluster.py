@@ -101,6 +101,83 @@ def _retrain_impl(store: ClusterStore, slots: torch.Tensor,
     return new_store, st.l
 
 
+def retrain_cells(store: ClusterStore, slots: torch.Tensor,
+                  slot_ok: torch.Tensor, x: torch.Tensor, grad: torch.Tensor,
+                  val: torch.Tensor, sigx: torch.Tensor,
+                  siggrad: torch.Tensor, valid: torch.Tensor,
+                  scale) -> ClusterStore:
+    """_retrain_impl without the Cholesky factor."""
+    return _retrain_impl(store, slots, slot_ok, x, grad, val, sigx,
+                         siggrad, valid, scale)[0]
+
+
+class NodeMirror(NamedTuple):
+    """Device copy of the host node table, indexed by node id. Kept in
+    sync by scattering only the nodes each frame mutates
+    (api.GPisMap2D._sync_mirror), so the retrain gathers its support on
+    the device from the support ids alone."""
+
+    pos: torch.Tensor       # [N, D]
+    grad: torch.Tensor      # [N, D]
+    val: torch.Tensor       # [N]
+    pos_sig: torch.Tensor   # [N]
+    grad_sig: torch.Tensor  # [N]
+
+
+def make_mirror(cap: CapacityParam, dim: int,
+                device: torch.device) -> NodeMirror:
+    n = cap.max_nodes
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    return NodeMirror(pos=z(n, dim), grad=z(n, dim), val=z(n),
+                      pos_sig=z(n), grad_sig=z(n))
+
+
+def scatter_mirror(mirror: NodeMirror, ids: torch.Tensor, pos, grad, val,
+                   pos_sig, grad_sig) -> NodeMirror:
+    """Write the given nodes' current host values into the mirror, in
+    place (the JAX package returns a new mirror); ids of -1 are dropped.
+    Returns the mirror.
+
+    Raises ValueError for an id at or above the mirror's length
+    (cap.max_nodes): the JAX mirror drops such a row silently, and its
+    retrain then gathers a clipped, wrong row."""
+    n = mirror.val.shape[0]
+    keep = torch.nonzero(ids >= 0).reshape(-1)
+    tgt = ids[keep].long()
+    if len(tgt) and int(tgt.max()) >= n:
+        raise ValueError(f"node id {int(tgt.max())} does not fit the node "
+                         f"mirror of {n} rows (cap.max_nodes)")
+    for old, new in zip(mirror, (pos, grad, val, pos_sig, grad_sig)):
+        old.index_copy_(0, tgt, new[keep])
+    return mirror
+
+
+def retrain_cells_from_mirror_with_l(store: ClusterStore,
+                                     mirror: NodeMirror,
+                                     slots: torch.Tensor,
+                                     slot_ok: torch.Tensor,
+                                     sup: torch.Tensor, scale):
+    """retrain_cells with the support gathered on the device from the node
+    mirror by the support ids sup [B, mb] (-1 = padding), returning also
+    the fit's Cholesky factor l [B, (1+D)mb, (1+D)mb], which the factor
+    cache refresh inverts (update_factors_from_l). Returns (store, l)."""
+    c = torch.clamp(sup, 0, mirror.val.shape[0] - 1).long()
+    return _retrain_impl(store, slots, slot_ok, mirror.pos[c],
+                         mirror.grad[c], mirror.val[c], mirror.pos_sig[c],
+                         mirror.grad_sig[c], sup >= 0, scale)
+
+
+def retrain_cells_from_mirror(store: ClusterStore, mirror: NodeMirror,
+                              slots: torch.Tensor, slot_ok: torch.Tensor,
+                              sup: torch.Tensor, scale) -> ClusterStore:
+    """retrain_cells_from_mirror_with_l without the Cholesky factor."""
+    return retrain_cells_from_mirror_with_l(store, mirror, slots, slot_ok,
+                                            sup, scale)[0]
+
+
 def _factorize_cells(store: ClusterStore, slots: torch.Tensor,
                      scale) -> torch.Tensor:
     """L^-1 for the given slots: [S, M', M']. Entries with slot < 0 get
@@ -117,7 +194,7 @@ def _factorize_cells(store: ClusterStore, slots: torch.Tensor,
         k = kernels.matern32_deriv_train_cov(store.x[sc], sigx,
                                              store.siggrad[sc], gradflag,
                                              vl, scale)
-        out[live] = gp.linv_from_chol(torch.linalg.cholesky(k))
+        out[live] = gp.linv_from_chol(gp._chol(k))
     return out
 
 
@@ -132,6 +209,57 @@ def factorize_slots(store: ClusterStore, slots: torch.Tensor, scale,
     slot_of = torch.where(sl < _INT32_MAX, sl, -1)
     return _factorize_cells(store, slot_of, scale), torch.where(
         slot_of >= 0, slot_of, _INT32_MAX)
+
+
+def _embed_linv(linv_s: torch.Tensor, mp: int, d: int) -> torch.Tensor:
+    """Scatter a small-system L^-1 [B, (1+d)mb, (1+d)mb] into the
+    identity-padded full layout [B, mp, mp]. Exact: the masked identity
+    rows of the padding leave the Cholesky recursion's real rows as they
+    are, so the full L^-1 is the small one at the real rows' positions."""
+    mp_s = linv_s.shape[-1]
+    if mp_s == mp:
+        return linv_s
+    m = mp // (1 + d)
+    mb = mp_s // (1 + d)
+    idx = torch.cat([b * m + torch.arange(mb, device=linv_s.device)
+                     for b in range(1 + d)])
+    full = torch.eye(mp, dtype=linv_s.dtype,
+                     device=linv_s.device).repeat(linv_s.shape[0], 1, 1)
+    full[:, idx[:, None], idx[None, :]] = linv_s
+    return full
+
+
+def _update_factors_from_l_impl(linv_buf: torch.Tensor, uniq: torch.Tensor,
+                                slots: torch.Tensor, l: torch.Tensor,
+                                d: int) -> torch.Tensor:
+    """Body of update_factors_from_l: L^-1 of every row of l, embedded
+    into the cache layout and copied in place into the rows of linv_buf
+    whose slot is in uniq; rows whose slot misses uniq are dropped."""
+    max_active = linv_buf.shape[0]
+    sl = torch.where(slots >= 0, slots, _INT32_MAX).to(torch.int32)
+    pos = torch.clamp(torch.searchsorted(uniq, sl), 0, max_active - 1)
+    hit = torch.nonzero((sl < _INT32_MAX) & (uniq[pos] == sl)).reshape(-1)
+    linv_full = _embed_linv(gp.linv_from_chol(l), linv_buf.shape[-1], d)
+    linv_buf.index_copy_(0, pos[hit], linv_full[hit])
+    return linv_buf
+
+
+def update_factors_from_l(linv_buf: torch.Tensor, uniq: torch.Tensor,
+                          slots: torch.Tensor, l: torch.Tensor,
+                          d: int) -> torch.Tensor:
+    """Factor-cache refresh from the retrain fit's own Cholesky factor
+    (the reference keeps each fit's L, OnGPIS.h): only the triangular
+    inverse is left to compute.
+
+    linv_buf [S, M', M'] and uniq [S] are a factorize_slots cache; slots
+    [B] are aligned row for row with l [B, (1+d)mb, (1+d)mb] (mb <= M, a
+    support bucket). linv_buf is written in place (the JAX package
+    donates it) and returned."""
+    if l.shape[0] != slots.shape[0] or l.shape[-1] > linv_buf.shape[-1]:
+        raise ValueError(f"update_factors_from_l: l {tuple(l.shape)} does "
+                         f"not fit slots {tuple(slots.shape)} and the cache "
+                         f"{tuple(linv_buf.shape)}")
+    return _update_factors_from_l_impl(linv_buf, uniq, slots, l, d)
 
 
 def _ongpis_eval_tile(store: ClusterStore, linv_buf: torch.Tensor,

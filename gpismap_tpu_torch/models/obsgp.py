@@ -83,7 +83,7 @@ def fit_obsgp1d(theta: torch.Tensor, f: torch.Tensor, valid: torch.Tensor,
     gf = f_c[idx_c]
 
     st = gp.fit_gpou(gx, gf, in_group, param.scale, param.noise)
-    linv = gp.linv_from_chol(st.l)
+    linv = gp.gpou_linv(st.l)
 
     # boundary angles (ObsGP.cpp:93,102,117,129): bounds[0] = theta[0];
     # interior g: theta[g*gs + gs + ov/2]; g == nG-2: theta[start +

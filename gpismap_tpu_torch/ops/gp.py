@@ -1,8 +1,14 @@
 """Batched masked GP fit / posterior for the two GP families.
 
-Port of gpismap_tpu/ops/gp.py on its CPU branch: Cholesky and triangular
-solves through torch.linalg (the JAX package's TPU-only blocked and
-Pallas factorization routes are not ported).
+Port of gpismap_tpu/ops/gp.py. The cluster-GP systems (fit_ongpis,
+linv_from_chol) are factored by ops/chol: the CUDA kernels on a CUDA
+tensor, the plain versions on a CPU tensor (the counterparts of the JAX
+package's gp._chol and linv_from_chol with GPISMAP_PALLAS_CHOL=1). The
+observation-GP systems (fit_gpou, gpou_linv) stay on torch.linalg on
+every device, as they never reach the Pallas kernels in the JAX package.
+The triangular solves for alpha stay torch.linalg.solve_triangular (the
+JAX package computes them outside any Pallas kernel too). The TPU-only
+blocked factorization route is not ported.
 
  - GPou: tiny OU-kernel regressor of the observation GPs (ObsGP.cpp:32-62)
  - OnGPIS: Matern-3/2 SDF GP with gradient observations, one per cluster
@@ -14,6 +20,7 @@ from typing import NamedTuple
 
 import torch
 
+from . import chol as chol_ops
 from . import kernels
 
 
@@ -44,21 +51,32 @@ def fit_gpou(x: torch.Tensor, f: torch.Tensor, valid: torch.Tensor,
     x: [B, M, D], f: [B, M], valid: [B, M]."""
     f = torch.where(valid, f, 0.0)
     k = kernels.ou_train_cov(x, noise, valid, scale)
-    l = torch.linalg.cholesky(k)
+    l = chol_ops.chol_reference(k)
     alpha = _solve_chol(l, f[..., None])[..., 0]
     return GPouState(x=x, valid=valid, l=l, alpha=alpha,
                      trained=torch.any(valid, dim=-1))
 
 
+def _chol(k: torch.Tensor) -> torch.Tensor:
+    """Cholesky factor of cluster-GP systems [B, n, n]: the CUDA kernel on
+    a CUDA tensor (gp._chol with the Pallas gate open)."""
+    return chol_ops.chol(k)
+
+
 def linv_from_chol(l: torch.Tensor) -> torch.Tensor:
-    """Explicit L^-1 from a (masked) Cholesky factor: the per-query
-    triangular solve of the reference (ObsGP.cpp:56-59) becomes one
-    precomputed inverse plus matrix products, while the variance
+    """Explicit L^-1 from a (masked) cluster-GP Cholesky factor: the
+    per-query triangular solve of the reference (ObsGP.cpp:56-59) becomes
+    one precomputed inverse plus matrix products, while the variance
     ||L^-1 k||^2 keeps the reference's stable form. The result is lower
-    triangular with an exactly zero strict upper triangle."""
-    m = l.shape[-1]
-    eye = torch.eye(m, dtype=l.dtype, device=l.device).expand(l.shape)
-    return torch.linalg.solve_triangular(l, eye, upper=False)
+    triangular with an exactly zero strict upper triangle. The CUDA kernel
+    on a CUDA tensor."""
+    return chol_ops.linv(l)
+
+
+def gpou_linv(l: torch.Tensor) -> torch.Tensor:
+    """linv_from_chol for the observation GPs' small factors (n = 26 in
+    2D): torch.linalg on every device."""
+    return chol_ops.linv_reference(l)
 
 
 def gpou_posterior_gather(x: torch.Tensor, alpha: torch.Tensor,
@@ -70,7 +88,7 @@ def gpou_posterior_gather(x: torch.Tensor, alpha: torch.Tensor,
     batched form of the reference's per-point group lookup + GPou::test
     (ObsGP.cpp:352-463). Chunked to bound the [C, M, M] factor gather.
 
-    x: [S, M, D]; alpha: [S, M]; linv: [S, M, M] (see linv_from_chol);
+    x: [S, M, D]; alpha: [S, M]; linv: [S, M, M] (see gpou_linv);
     valid: [S, M]; trained: [S] bool; cell_idx: [Q] group per query
     (clipped to [0, S)); q: [Q, D]. Returns (mean [Q], var [Q]);
     untrained groups give (0, 1e6), the reference sentinel
@@ -131,7 +149,7 @@ def fit_ongpis(x: torch.Tensor, grad: torch.Tensor, val: torch.Tensor,
     gmaskf = gradflag.to(x.dtype)
     y = torch.cat([torch.where(valid, val, 0.0)]
                   + [grad[..., i] * gmaskf for i in range(d)], dim=-1)
-    l = torch.linalg.cholesky(k)
+    l = _chol(k)
     alpha = _solve_chol(l, y[..., None])[..., 0]
     return OnGPISState(x=x, valid=valid, gradflag=gradflag, l=l,
                        alpha=alpha, trained=torch.any(valid, dim=-1))

@@ -30,10 +30,6 @@ from .. import _native
 from . import kernels
 
 _SRC = os.path.join(_native.PKG_DIR, "csrc", "tile_eval.cu")
-_NVCC = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                      "bin", "nvcc"),
-         "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
 _LOCK = threading.Lock()
 _LIB: Optional[ct.CDLL] = None
 # launches of the CUDA kernel by tile_eval (not of the plain version)
@@ -44,14 +40,14 @@ def build_library() -> str:
     """Compile the kernel library if it is missing or stale; returns the
     compiler's output (ptxas register/shared-memory report; "" when up to
     date)."""
-    return _native.build(_SRC, "libtile_eval.so", _NVCC)[1]
+    return _native.build(_SRC, "libtile_eval.so", _native.NVCC)[1]
 
 
 def _lib() -> ct.CDLL:
     global _LIB
     with _LOCK:
         if _LIB is None:
-            path, _ = _native.build(_SRC, "libtile_eval.so", _NVCC)
+            path, _ = _native.build(_SRC, "libtile_eval.so", _native.NVCC)
             lib = ct.CDLL(path)
             lib.tile_eval_launch.restype = ct.c_int
             lib.tile_eval_launch.argtypes = (

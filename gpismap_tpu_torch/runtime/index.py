@@ -100,6 +100,9 @@ class SpatialIndex:
         self._h = self._lib.gpis_index_create(
             dim, tree.min_halfleng, tree.max_halfleng,
             tree.init_root_halfleng, tree.cluster_halfleng, eps, max_slots)
+        # node ids mutated since the last pop_dirty (drives the device
+        # node mirror, api.GPisMap2D._sync_mirror)
+        self._dirty: list = []
         # capped host queries that had to re-issue with a larger buffer
         self.regrow_count = 0
 
@@ -110,6 +113,7 @@ class SpatialIndex:
 
     def reset(self):
         self._lib.gpis_index_reset(self._h)
+        self._dirty = []
 
     # -- mutation --
     def try_insert(self, pos: np.ndarray) -> np.ndarray:
@@ -118,10 +122,12 @@ class SpatialIndex:
         pos = np.ascontiguousarray(pos, np.float32)
         out = np.empty(pos.shape[0], np.int32)
         self._lib.gpis_index_try_insert(self._h, pos, pos.shape[0], out)
+        self._dirty.append(out[out >= 0].copy())
         return out
 
     def set_node_data(self, ids, val, pos_sig, grad, grad_sig):
         ids = np.ascontiguousarray(ids, np.int32)
+        self._dirty.append(ids.copy())
         self._lib.gpis_index_set_node_data(
             self._h, ids, ids.shape[0],
             np.ascontiguousarray(val, np.float32),
@@ -134,6 +140,7 @@ class SpatialIndex:
         """Apply per-node re-evaluation outcomes in reference order
         (GPisMap.cpp:398-452). Returns new node ids for re-inserts."""
         ids = np.ascontiguousarray(ids, np.int32)
+        self._dirty.append(ids.copy())
         out = np.empty(ids.shape[0], np.int32)
         self._lib.gpis_index_apply_reeval(
             self._h, ids, ids.shape[0],
@@ -145,7 +152,16 @@ class SpatialIndex:
             np.ascontiguousarray(dbl_ps, np.float32),
             np.ascontiguousarray(dbl_gs, np.float32),
             float(fused_val), out)
+        self._dirty.append(out[out >= 0].copy())
         return out
+
+    def pop_dirty(self) -> np.ndarray:
+        """Unique node ids mutated since the last call (clears the set)."""
+        if not self._dirty:
+            return np.zeros(0, np.int32)
+        ids = np.unique(np.concatenate(self._dirty)).astype(np.int32)
+        self._dirty = []
+        return ids[ids >= 0]
 
     def clear_active(self):
         self._lib.gpis_index_clear_active(self._h)
