@@ -1,27 +1,36 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port (gpismap_tpu_torch) on one NVIDIA GPU.
 
-Builds the native libraries from the checkout (all at once), checks each
-CUDA kernel of the 2D path against its plain PyTorch version at the
-production shapes (the tile evaluation; the Cholesky and L^-1 of the
-cluster GPs), then drives the 2D mapper's main path through its public
-entry points (GPisMap2D(device="cuda").update on 28 synthetic 1081-beam
-LiDAR frames, then test() on the 49,551-point 0.1 m demo grid), checks
-the result, and re-ingests the last frame to drive the factor-cache
-refresh from the fits' own Cholesky factors. When $GPISMAP_DATA holds
-the bundled gazebo sequence (2D/gazebo1.mat), the 28 demo frames of the
-real sequence replace the synthetic ones, and the run says so.
+Builds the native libraries from the checkout (all at once) and drives
+both mappers' main paths through their public entry points, each kernel
+of a path first checked against its plain PyTorch version at the path's
+production shapes:
+
+  2D (phases 3-5): the tile evaluation at d=2 and the Cholesky and L^-1
+  of the cluster GPs at MP <= 384; GPisMap2D(device="cuda").update on 28
+  synthetic 1081-beam LiDAR frames, test() on the 49,551-point 0.1 m
+  demo grid, then the last frame once more to drive the factor-cache
+  refresh from the fits' own Cholesky factors. When $GPISMAP_DATA holds
+  the bundled gazebo sequence (2D/gazebo1.mat), the 28 demo frames of the
+  real sequence replace the synthetic ones, and the run says so.
+
+  3D (phases 6-8): the tile evaluation at d=3 (MP=1280, T=128) and the
+  Cholesky and L^-1 at MP 320/640/1280; GPisMap3D() (its default device,
+  the card) on 40 synthetic 640x480 depth frames of a box and a cylinder
+  (tests/torch_scenes.py), test() twice on the 15,225-point demo volume,
+  then the last frame once more (the refresh).
 
 Usage: python3 chip_smoke.py    (from the repository root; needs CUDA)
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
 the line before it is the card's name and power limit, and the one
-before that lists each kernel of the path with its launches on the main
-path (phase 4 and the refresh phase), its error against the plain
-version and both times (the tile kernel at the warm map's tile plan,
-chol and linv at B=64, MP=384). Any failed phase exits non-zero before
-that.
+before that lists each kernel at each shape of the two paths with its
+launches on that main path, its error against the plain version, its
+time, the plain version's, the bound (the least time the card could take
+for the same work) and the time of the PyTorch call that computes the
+same function, where there is one. Any failed phase exits non-zero
+before that.
 """
 import json
 import os
@@ -34,10 +43,17 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# kernel vs plain version, per output; fp32 throughout, see PERF.md
+# kernel vs plain version, per output; fp32 throughout, see PERF.md. At
+# d=3 an output's error is taken relative to its largest magnitude (at
+# least 1): var_grad there is grad_const - s with grad_const = 3/l^2 +
+# 0.001 = 1875 (l = 0.04 m, 2.18 in 2D), and one f32 ulp of 1875 is
+# already 1.2e-4
 KERNEL_TOL = 1e-4
 # Cholesky factor vs the plain version: the synthetic SPD tolerance of
-# tests/test_pallas.py (f32, rounding order only)
+# tests/test_pallas.py (f32, rounding order only), relative to the
+# factor's largest entry where that exceeds 1: the 3D systems' gradient
+# block has 3/l^2 = 1875 on its diagonal (l = 0.04 m), so L reaches 43
+# there (about 1.5 in 2D)
 CHOL_TOL = 2e-4
 # L^-1 vs the plain version, relative to max |L^-1|: its entries grow with
 # the condition of the cluster system (variances are built from them), so
@@ -52,6 +68,18 @@ CROSS_TOL = 1e-3
 MAPPED_FLOOR = 0.9
 # share of wall probe pairs whose SDF signs differ across the wall
 SIGN_FLOOR = 0.9
+# mapped share of the 3D demo volume (var_f < 1 + map_noise) the 40-frame
+# synthetic object must reach: a CPU run of the port on the same scene and
+# poses at 320x240 (half the focal length; tools/torch_scene3d_cpu.py)
+# mapped 0.9887 of it
+MAPPED_FLOOR_3D = 0.9
+# share of the confident surface probe pairs (1 cm outside and 1 cm
+# inside the object along its true normal) whose SDF signs differ
+SIGN_FLOOR_3D = 0.9
+# peak rates of one H100 SXM at its 700 W limit (NVIDIA data sheet): fp32
+# outside the tensor cores (every kernel here is fp32 FMAs) and HBM3
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
 
 
 def fail(msg: str):
@@ -104,16 +132,79 @@ class Capture:
         setattr(self.module, self.name, self.orig)
 
 
+def bound(flops: float, nbytes: float):
+    """The least time the card could take for work of `flops` fp32
+    operations that must move `nbytes` (each input read once, each output
+    written once): (ms, "operations" or "bytes", whichever bounds it)."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def tile_bound(args, kwargs):
+    """bound() of one tile evaluation on these inputs: per active tile of
+    T queries, the variance product over L^-1's lower triangle and the
+    mean, MP(MP+1)/2 + MP multiply-adds per K* column, T(1+D) columns;
+    bytes: the lower triangle of L^-1 and the cell inputs of each cell
+    the active tiles use, their queries, the tile list and the outputs."""
+    tile_seg, linv, xt, _, _, _, qt = args
+    d = kwargs["d"]
+    mp, m, t = linv.shape[-1], xt.shape[-1], qt.shape[-1]
+    act = tile_seg >= 0
+    n_act = int(act.sum())
+    n_cells = int(torch.unique(tile_seg[act]).numel())
+    flops = 2.0 * n_act * t * (1 + d) * (mp * (mp + 1) / 2 + mp)
+    nbytes = 4.0 * (n_cells * (mp * (mp + 1) / 2 + d * m + mp + 2 * m)
+                    + tile_seg.numel() + n_act * t * (d + 2 + 2 * d))
+    return bound(flops, nbytes)
+
+
+def factor_bound(x: torch.Tensor):
+    """bound() of chol or linv on [B, n, n]: n^3/6 multiply-adds per
+    matrix; the matrix read once and its factor written once."""
+    b, n, _ = x.shape
+    return bound(b * n ** 3 / 3.0, 8.0 * b * n * n)
+
+
+def kernel_entry(name, replaces, launches, err, ms, plain_ms, bnd,
+                 library_ms):
+    source = ("gpismap_tpu_torch/csrc/tile_eval.cu"
+              if name.startswith("tile_eval")
+              else "gpismap_tpu_torch/csrc/chol.cu")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "library_ms": library_ms}
+
+
+def ptxas_lines(name: str, log: str):
+    """The register / spill lines of nvcc's -Xptxas -v report, each
+    labelled with its kernel (and the tile kernel's dimension)."""
+    fn = name
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = next((label for key, label in (
+                ("ILi2E", "tile_eval d=2"), ("ILi3E", "tile_eval d=3"),
+                ("chol_kernel", "chol_kernel"),
+                ("linv_kernel", "linv_kernel")) if key in line), name)
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas ({fn}): {line.strip()}")
+
+
 def compare_kernel(tile_ops, captured):
-    """Kernel vs plain version on captured tile-op arguments: max abs
-    error per output over the active tiles."""
+    """Kernel vs plain version on captured tile-op arguments, per output
+    over the active tiles: (max abs error, max abs error relative to the
+    output's largest magnitude, at least 1)."""
     args, kwargs = captured
     out_k = tile_ops.tile_eval(*args, **kwargs)
     out_r = tile_ops.tile_eval_reference(*args, **kwargs)
     torch.cuda.synchronize()
     act = args[0] >= 0
-    return {name: float((a[act] - b[act]).abs().max())
-            for name, a, b in zip(("f", "g", "vf", "vg"), out_k, out_r)}
+    err, rel = {}, {}
+    for name, a, b in zip(("f", "g", "vf", "vg"), out_k, out_r):
+        err[name] = float((a[act] - b[act]).abs().max())
+        rel[name] = err[name] / max(1.0, float(b[act].abs().max()))
+    return err, rel
 
 
 def spd_batch(b: int, n: int, seed: int) -> torch.Tensor:
@@ -135,25 +226,33 @@ def check_factor_kernels(chol_ops, name, k, card):
     errors and CUDA-event times. Returns the row for the summary."""
     l_ref = chol_ops.chol_reference(k).contiguous()
     l_err = float((chol_ops.chol(k) - l_ref).abs().max())
+    l_rel = l_err / max(1.0, float(l_ref.abs().max()))
     w_ref = chol_ops.linv_reference(l_ref)
     w_err = float((chol_ops.linv(l_ref) - w_ref).abs().max())
     w_rel = w_err / float(w_ref.abs().max())
     torch.cuda.synchronize()
+    b, n, _ = k.shape
+    eye = torch.eye(n, device=k.device).expand(k.shape)
     row = dict(
-        chol_err=l_err, linv_err=w_err, linv_rel=w_rel,
+        chol_err=l_err, chol_rel=l_rel, linv_err=w_err, linv_rel=w_rel,
         chol_ms=cuda_ms(lambda: chol_ops.chol(k), 10),
         chol_plain_ms=cuda_ms(lambda: chol_ops.chol_reference(k), 5),
+        chol_library_ms=cuda_ms(lambda: torch.linalg.cholesky(k), 5),
         linv_ms=cuda_ms(lambda: chol_ops.linv(l_ref), 10),
-        linv_plain_ms=cuda_ms(lambda: chol_ops.linv_reference(l_ref), 5))
-    b, n, _ = k.shape
-    print(f"  {name} B={b} MP={n}: chol max abs err {l_err:.3g}, kernel "
+        linv_plain_ms=cuda_ms(lambda: chol_ops.linv_reference(l_ref), 5),
+        linv_library_ms=cuda_ms(lambda: torch.linalg.solve_triangular(
+            l_ref, eye, upper=False), 5),
+        bound=factor_bound(k))
+    print(f"  {name} B={b} MP={n}: chol max abs err {l_err:.3g} (relative "
+          f"{l_rel:.3g}), kernel "
           f"{row['chol_ms']:.3f} ms, plain {row['chol_plain_ms']:.3f} ms; "
           f"linv max abs err {w_err:.3g} (relative {w_rel:.3g}), kernel "
-          f"{row['linv_ms']:.3f} ms, plain {row['linv_plain_ms']:.3f} ms "
-          f"({card})", flush=True)
-    if l_err > CHOL_TOL:
+          f"{row['linv_ms']:.3f} ms, plain {row['linv_plain_ms']:.3f} ms; "
+          f"bound {row['bound'][0]:.3f} ms ({row['bound'][1]}) ({card})",
+          flush=True)
+    if l_rel > CHOL_TOL:
         fail(f"chol kernel disagrees with the plain version on {name}: "
-             f"{l_err}")
+             f"{l_err} ({l_rel} relative)")
     if w_rel > LINV_REL_TOL:
         fail(f"linv kernel disagrees with the plain version on {name}: "
              f"relative {w_rel}")
@@ -176,6 +275,208 @@ def check_walls(m, torch_scenes):
           f"scanner side positive in {free_pos:.3f}")
     if flip < SIGN_FLOOR:
         fail(f"SDF sign flips across walls in only {flip} of the probes")
+
+
+def check_surface(m, torch_scenes):
+    """SDF (f + fbias) changes sign between 1 cm outside and 1 cm inside
+    the object's surface, along its true normal."""
+    out, inside = torch_scenes.surface_probes()
+    r_out, r_in = m.test(out), m.test(inside)
+    conf = (r_out[:, 4] < m.p.test_var_thre) & (r_in[:, 4]
+                                                < m.p.test_var_thre)
+    s_out = np.sign(r_out[conf, 0] + m.p.fbias)
+    s_in = np.sign(r_in[conf, 0] + m.p.fbias)
+    flip = float((s_out != s_in).mean()) if conf.any() else 0.0
+    out_pos = float((s_out > 0).mean()) if conf.any() else 0.0
+    print(f"  surface probes: {int(conf.sum())} of {len(out)} pairs "
+          f"confident; sign differs across the surface in {flip:.4f}; "
+          f"outside positive in {out_pos:.4f}")
+    if flip < SIGN_FLOOR_3D:
+        fail(f"SDF sign flips across the surface in only {flip} of the "
+             f"probes")
+
+
+def run_3d(card, torch_scenes, chol_ops, tile_ops, cluster, convert):
+    """Phases 6-8, the 3D path. Returns the numbers of its kernel
+    entries."""
+    from gpismap_tpu_torch import BIGBIRD_CAMS, GPisMap3D
+
+    frames = torch_scenes.object_frames(40, BIGBIRD_CAMS[0])
+    volume = torch_scenes.volume_grid()
+    if volume.shape != (15225, 3):
+        fail(f"query volume has shape {volume.shape}")
+    print("scene 3D: synthetic box and cylinder (tests/torch_scenes.py), "
+          "40 frames of 640x480 depth, bigbird camera 1", flush=True)
+
+    # ---- phase 6: the 3D kernels vs their plain versions, on the
+    # cluster systems, tile plan and factors of a mapped scene ----
+    warm = GPisMap3D()
+    warm.set_camera(1, "bigbird")           # the frames' intrinsics
+    warm.update_batch(frames[:11])
+    with Capture(chol_ops, "chol") as cap_fit:
+        warm.update(*frames[11])
+    with Capture(tile_ops, "tile_eval") as cap, \
+            Capture(chol_ops, "chol") as cap_fill:
+        warm.test(volume)
+    args, kwargs = cap.args
+    nt, mp, t = args[0].shape[0], args[1].shape[1], args[6].shape[-1]
+    n_act = int((args[0] >= 0).sum())
+    err6, rel6 = compare_kernel(tile_ops, cap.args)
+    ms = cuda_ms(lambda: tile_ops.tile_eval(*args, **kwargs), 5)
+    plain_ms = cuda_ms(lambda: tile_ops.tile_eval_reference(*args, **kwargs),
+                       2)
+    bnd = tile_bound(args, kwargs)
+    print(f"phase 6: d=3 NT={nt} ({n_act} active) MP={mp} T={t}: max abs "
+          "err " + " ".join(f"{k}={v:.3g}" for k, v in err6.items())
+          + " (relative " + " ".join(f"{k}={v:.3g}" for k, v in rel6.items())
+          + f"); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bnd[0]:.3f} ms ({bnd[1]}) ({card})", flush=True)
+    if max(rel6.values()) > KERNEL_TOL:
+        fail(f"d=3 kernel disagrees with the plain version: {rel6}")
+    if not cap_fit.calls or not cap_fill.calls:
+        fail("the warm 3D map's retrain or fill factored nothing")
+    systems = ([("retrain K", c[0][0]) for c in cap_fit.calls]
+               + [("fill K", c[0][0]) for c in cap_fill.calls]
+               + [("synthetic SPD", spd_batch(64, n, seed=n))
+                  for n in (320, 640, 1280)])
+    print("phase 6b: chol and linv vs their plain versions at the 3D sizes "
+          "(linv on the plain L)", flush=True)
+    rows = [check_factor_kernels(chol_ops, name, k, card)
+            for name, k in systems]
+    out = dict(tile_err=max(err6.values()), tile_ms=ms,
+               tile_plain_ms=plain_ms, tile_bound=bnd,
+               chol_err=max(r["chol_err"] for r in rows),
+               linv_err=max(r["linv_err"] for r in rows),
+               headline=rows[-1])                   # B=64 at MP=1280
+    del warm, cap, cap_fit, cap_fill, args, kwargs, systems
+
+    # ---- phase 7: the 3D main path at full size, on the default device ----
+    m = GPisMap3D()
+    if m.device.type != "cuda":
+        fail(f"GPisMap3D() runs on {m.device}, not the card")
+    m.set_camera(1, "bigbird")
+    tile_ops.launches = 0
+    chol_ops.chol_launches = chol_ops.linv_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    m.update_batch(frames)
+    torch.cuda.synchronize()
+    t_update = time.time() - t0
+    upd = (tile_ops.launches, chol_ops.chol_launches, chol_ops.linv_launches)
+    tile_ops.launches = 0
+    chol_ops.chol_launches = chol_ops.linv_launches = 0
+    t0 = time.time()
+    res = m.test(volume)
+    torch.cuda.synchronize()
+    t_first = time.time() - t0
+    with Capture(tile_ops, "tile_eval") as cap:
+        t0 = time.time()
+        m.test(volume)
+        torch.cuda.synchronize()
+        t_warm = time.time() - t0
+    tst = (tile_ops.launches, chol_ops.chol_launches, chol_ops.linv_launches)
+    n_live = len(m._live_slots())
+    print(f"phase 7: {m.num_nodes} nodes, {n_live} live cells after "
+          f"{len(frames)} frames; update {len(frames) / t_update:.2f} "
+          f"frames/s; test {len(volume) / t_first:.0f} queries/s on the "
+          f"first call (factor cache fill included), "
+          f"{len(volume) / t_warm:.0f} warm; launches tile/chol/linv "
+          f"{upd[0]}/{upd[1]}/{upd[2]} in update, {tst[0]}/{tst[1]}/{tst[2]} "
+          f"in the two tests ({card})", flush=True)
+    if tst[0] < 1:
+        fail("test() did not launch the d=3 tile kernel")
+    if upd[1] + tst[1] < 1 or upd[2] + tst[2] < 1:
+        fail("the 3D main path did not launch the chol and linv kernels")
+    if m._factors is None:
+        fail(f"test() did not use the factor cache ({n_live} live cells, "
+             f"bound {m.cap.test_active_cells})")
+    if res.shape != (len(volume), 8) or not np.isfinite(res).all():
+        fail(f"test() output not finite of shape {(len(volume), 8)}")
+    mapped = float((res[:, 4] < 1.0 + m.p.map_noise_param).mean())
+    confident = float((res[:, 4] < m.p.test_var_thre).mean())
+    print(f"  mapped share {mapped:.4f} (floor {MAPPED_FLOOR_3D}), var_f "
+          f"below var_thre {confident:.4f}")
+    if mapped < MAPPED_FLOOR_3D:
+        fail(f"mapped share {mapped} below {MAPPED_FLOOR_3D}")
+    check_surface(m, torch_scenes)
+    err7, rel7 = compare_kernel(tile_ops, cap.args)
+    print("  d=3 kernel vs plain on this map's tile plan: max abs err "
+          + " ".join(f"{k}={v:.3g}" for k, v in err7.items())
+          + " (relative " + " ".join(f"{k}={v:.3g}" for k, v in rel7.items())
+          + ")")
+    if max(rel7.values()) > KERNEL_TOL:
+        fail(f"d=3 kernel disagrees with the plain version: {rel7}")
+    out["tile_err"] = max(out["tile_err"], max(err7.values()))
+    del cap
+
+    # the same map on the CPU through the plain versions, at random points
+    # of the volume; var_grad is 3/l^2 + 0.001 = 1875 minus a sum of the
+    # same size, so it is held to CROSS_TOL of that constant
+    cpu = GPisMap3D(camera=m.cam, device="cpu")
+    convert.state_from_numpy(
+        m.index.serialize(),
+        {f"store_{k}": v.cpu().numpy() for k, v in m.store._asdict().items()},
+        m.frame, cpu)
+    rng = np.random.default_rng(0)
+    qr = np.stack([rng.uniform(*torch_scenes.VOLUME_X, 4096),
+                   rng.uniform(*torch_scenes.VOLUME_Y, 4096),
+                   rng.uniform(*torch_scenes.VOLUME_Z, 4096)],
+                  -1).astype(np.float32)
+    t0 = time.time()
+    d_cross = np.abs(m.test(qr) - cpu.test(qr)).max(0)
+    grad_const = m._test_kwargs()["grad_const"]
+    print("  GPU vs CPU port at 4096 random points: max abs diff "
+          + " ".join(f"{v:.3g}" for v in d_cross)
+          + f" (var_grad relative to {grad_const:.1f}: "
+          f"{d_cross[5:].max() / grad_const:.3g}; {time.time() - t0:.1f} s)")
+    if max(d_cross[:5].max(), d_cross[5:].max() / grad_const) > CROSS_TOL:
+        fail(f"GPU and CPU results differ: {d_cross}")
+    del cpu
+
+    # ---- phase 8: re-ingest the last frame with a warm factor cache ----
+    uniq = m._factors[1]
+    chol_ops.chol_launches = chol_ops.linv_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    m.update(*frames[-1])
+    torch.cuda.synchronize()
+    t_refresh = time.time() - t0
+    refresh = (chol_ops.chol_launches, chol_ops.linv_launches)
+    if m._factors is None or m._factors[1] is not uniq:
+        fail("the re-ingested 3D frame dropped the factor cache instead of "
+             "refreshing it")
+    if refresh[0] < 1 or refresh[1] < 1:
+        fail(f"the 3D refresh launched chol/linv {refresh[0]}/{refresh[1]} "
+             f"times")
+    live = np.full(m.cap.test_active_cells, -1, np.int32)
+    live[:len(m._factors_slots)] = m._factors_slots
+    fresh, _ = cluster.factorize_slots(
+        m.store, torch.as_tensor(live, device=m.device),
+        m.p.map_scale_param, m.cap.test_active_cells)
+    d_cache = float((m._factors[0] - fresh).abs().max())
+    rel_cache = d_cache / float(fresh.abs().max())
+    del fresh
+    r_cached = m.test(qr)
+    m._factors = None
+    d_refresh = np.abs(r_cached - m.test(qr)).max(0)
+    print(f"phase 8: re-ingested 3D frame in {t_refresh * 1e3:.1f} ms, "
+          f"chol/linv launches {refresh[0]}/{refresh[1]}; refreshed cache vs "
+          f"a fresh fill max abs diff {d_cache:.3g} (relative "
+          f"{rel_cache:.3g}); test() through it vs a fresh fill at 4096 "
+          f"random points: max abs diff "
+          + " ".join(f"{v:.3g}" for v in d_refresh) + f" ({card})",
+          flush=True)
+    if rel_cache > LINV_REL_TOL:
+        fail(f"refreshed 3D factor cache differs from a fresh fill by "
+             f"{rel_cache} relative")
+    if max(d_refresh[:5].max(), d_refresh[5:].max() / grad_const) \
+            > KERNEL_TOL:
+        fail(f"test() through the refreshed 3D cache differs by "
+             f"{d_refresh}")
+    out.update(tile_launches=tst[0],
+               chol_launches=upd[1] + tst[1] + refresh[0],
+               linv_launches=upd[2] + tst[2] + refresh[1])
+    return out
 
 
 def main() -> int:
@@ -213,9 +514,7 @@ def main() -> int:
     print(f"phase 2: built the index, tile and chol kernel libraries in "
           f"{time.time() - t0:.1f} s", flush=True)
     for name in ("tile_eval", "chol"):
-        for line in logs[name].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas ({name}): {line.strip()}")
+        ptxas_lines(name, logs[name])
 
     dev = torch.device("cuda")
     gazebo = torch_scenes.gazebo_path()
@@ -242,14 +541,15 @@ def main() -> int:
     nt, mp = args[0].shape[0], args[1].shape[1]
     t = args[6].shape[-1]
     n_act = int((args[0] >= 0).sum())
-    err3 = compare_kernel(tile_ops, cap.args)
+    err3, _ = compare_kernel(tile_ops, cap.args)
     ms = cuda_ms(lambda: tile_ops.tile_eval(*args, **kwargs), 20)
     plain_ms = cuda_ms(lambda: tile_ops.tile_eval_reference(*args, **kwargs),
                        5)
+    bound2 = tile_bound(args, kwargs)
     print(f"phase 3: NT={nt} ({n_act} active) MP={mp} T={t}: max abs err "
           + " ".join(f"{k}={v:.3g}" for k, v in err3.items())
-          + f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms ({card})",
-          flush=True)
+          + f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bound2[0]:.3f} ms ({bound2[1]}) ({card})", flush=True)
     if max(err3.values()) > KERNEL_TOL:
         fail(f"kernel disagrees with the plain version: {err3}")
     # the fill factors what the chol wrapper was given; its L goes to linv
@@ -322,7 +622,7 @@ def main() -> int:
     else:
         check_walls(m, torch_scenes)
 
-    err4 = compare_kernel(tile_ops, cap.args)
+    err4, _ = compare_kernel(tile_ops, cap.args)
     print("  kernel vs plain on this map's tile plan: max abs err "
           + " ".join(f"{k}={v:.3g}" for k, v in err4.items()))
     if max(err4.values()) > KERNEL_TOL:
@@ -386,25 +686,33 @@ def main() -> int:
         fail(f"test() through the refreshed cache differs by "
              f"{d_refresh.max()}")
 
+    # ---- phases 6-8: the 3D path ----
+    r3 = run_3d(card, torch_scenes, chol_ops, tile_ops, cluster, convert)
+
+    t2 = "gpismap_tpu/ops/pallas_tile.py:118"
+    pc = "gpismap_tpu/ops/pallas_chol.py"
+    h3 = r3["headline"]
     kernels = [
-        {"name": "tile_eval", "route": "cuda",
-         "source": "gpismap_tpu_torch/csrc/tile_eval.cu",
-         "replaces": "gpismap_tpu/ops/pallas_tile.py:118",
-         "launches": launches,
-         "max_abs_err": max(max(err3.values()), max(err4.values())),
-         "ms": ms, "plain_ms": plain_ms},
-        {"name": "chol", "route": "cuda",
-         "source": "gpismap_tpu_torch/csrc/chol.cu",
-         "replaces": "gpismap_tpu/ops/pallas_chol.py:167",
-         "launches": upd[0] + first[0] + refresh[0],
-         "max_abs_err": chol_err, "ms": headline["chol_ms"],
-         "plain_ms": headline["chol_plain_ms"]},
-        {"name": "linv", "route": "cuda",
-         "source": "gpismap_tpu_torch/csrc/chol.cu",
-         "replaces": "gpismap_tpu/ops/pallas_chol.py:188",
-         "launches": upd[1] + first[1] + refresh[1],
-         "max_abs_err": linv_err, "ms": headline["linv_ms"],
-         "plain_ms": headline["linv_plain_ms"]}]
+        kernel_entry("tile_eval (d=2)", t2, launches,
+                     max(max(err3.values()), max(err4.values())), ms,
+                     plain_ms, bound2, None),
+        kernel_entry("tile_eval (d=3)", t2, r3["tile_launches"],
+                     r3["tile_err"], r3["tile_ms"], r3["tile_plain_ms"],
+                     r3["tile_bound"], None),
+        kernel_entry("chol (n=384)", f"{pc}:167",
+                     upd[0] + first[0] + refresh[0], chol_err,
+                     headline["chol_ms"], headline["chol_plain_ms"],
+                     headline["bound"], headline["chol_library_ms"]),
+        kernel_entry("chol (n=1280)", f"{pc}:167", r3["chol_launches"],
+                     r3["chol_err"], h3["chol_ms"], h3["chol_plain_ms"],
+                     h3["bound"], h3["chol_library_ms"]),
+        kernel_entry("linv (n=384)", f"{pc}:188",
+                     upd[1] + first[1] + refresh[1], linv_err,
+                     headline["linv_ms"], headline["linv_plain_ms"],
+                     headline["bound"], headline["linv_library_ms"]),
+        kernel_entry("linv (n=1280)", f"{pc}:188", r3["linv_launches"],
+                     r3["linv_err"], h3["linv_ms"], h3["linv_plain_ms"],
+                     h3["bound"], h3["linv_library_ms"])]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

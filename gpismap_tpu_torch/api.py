@@ -1,7 +1,9 @@
-"""User-facing 2D online GPIS mapper on PyTorch.
+"""User-facing 2D online GPIS mapper on PyTorch, and the host
+orchestration both mappers share.
 
-Port of gpismap_tpu/api.py:GPisMap2D (the default, non-strict path). A
-host orchestrator that drives:
+Port of gpismap_tpu/api.py:GPisMap2D (the default, non-strict path) and of
+the dimension-free parts of its _MeshMixin and _retrain_store (without the
+mesh). A host orchestrator that drives:
   * the native spatial index (csrc/gpis_index.cpp) for tree mutations
   * the per-frame tensor stages (models/mapper2d.py) for the GP math
   * the cluster-GP store, the node mirror and the factor cache
@@ -36,37 +38,37 @@ def _to_numpy(nt):
     return type(nt)(*(x.cpu().numpy() for x in nt))
 
 
-class GPisMap2D:
-    """Online continuous 2D SDF mapper from LiDAR scans.
+class _MapperBase:
+    """The dimension-free host orchestration of both mappers: device
+    checks, map reset, the new-measurement insert, the node mirror, the
+    bucketed retrain, the cluster grid, the factor cache and test() (the
+    JAX package's _MeshMixin and _retrain_store, without the mesh).
 
-    update(thetas, ranges, pose6) ingests one scan with pose
-    [tx, ty, R00, R10, R01, R11] (column-major 2x2, mexGPisMap.cpp:57-67);
-    test(x) returns [N, 6] = [f, gx, gy, var_f, var_gx, var_gy]
-    (mexGPisMap.cpp:99). All GP state and math live on `device`; the
-    spatial index lives on the host.
-    """
+    A subclass sets params, the dimension and the test search box
+    through _setup, and supplies update() and the test constants
+    (_test_kwargs)."""
 
-    def __init__(self, params: MapperParam = MAPPER_2D,
-                 obs_param: ObsGPParam = OBSGP_1D,
-                 tree: TreeParam = TREE_2D,
-                 cap: CapacityParam = CAPACITY_2D,
-                 device: torch.device | str = "cpu"):
+    def _setup(self, params: MapperParam, obs_param: ObsGPParam,
+               tree: TreeParam, cap: CapacityParam, dim: int,
+               device: torch.device | str, search_half: float) -> None:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("GPisMap2D(device='cuda'): no CUDA device is "
-                               "available")
+            raise RuntimeError(f"{type(self).__name__}(device="
+                               f"'{self.device}'): no CUDA device is "
+                               f"available; pass device='cpu' to run on "
+                               f"the CPU")
         self.p = params
         self.op = obs_param
         self.tp = tree
         self.cap = cap
-        self.dim = 2
-        self.index = SpatialIndex(self.dim, tree, max_slots=cap.max_cells)
+        self.dim = dim
+        self.index = SpatialIndex(dim, tree, max_slots=cap.max_cells)
         self.cell_size = 2.0 * tree.cluster_halfleng
         # the root can double once past max_halfleng (quadtree.cpp:162-165)
         self.grid_half = int(round(2.0 * tree.max_halfleng / self.cell_size))
-        self._search_half = params.map_scale_param * 4.0  # GPisMap.cpp:680
-        self._noff = int((self._search_half + self.cell_size)
-                         / self.cell_size)
+        # test() search box half-width, and the grid window that covers it
+        self._search_half = search_half
+        self._noff = int((search_half + self.cell_size) / self.cell_size)
         self._retrain_buckets = _default_buckets(cap.gp_support)
         self.stats: dict = {}
         self.reset()
@@ -86,70 +88,6 @@ class GPisMap2D:
     def _t(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
 
-    # ------------------------------------------------------------------
-    def update(self, thetas: np.ndarray, ranges: np.ndarray,
-               pose: np.ndarray) -> None:
-        """Ingest one scan (GPisMap::update, GPisMap.cpp:151-167). Per-frame
-        counters and timings land in self.stats."""
-        t0 = time.time()
-        thetas = np.asarray(thetas, np.float32).reshape(-1)
-        ranges = np.asarray(ranges, np.float32).reshape(-1)
-        pose = np.asarray(pose, np.float32).reshape(-1)
-        tr = pose[:2]
-        rot = pose[2:6].reshape(2, 2, order="F")
-
-        nb = _next_pow2(len(thetas))
-        th_p = np.zeros(nb, np.float32)
-        rg_p = np.zeros(nb, np.float32)     # padded beams: range 0, gated out
-        th_p[:len(thetas)] = thetas
-        rg_p[:len(ranges)] = ranges
-        # host range gate (the same as preprocess_2d's) for the in-view cull
-        validh = (rg_p > self.p.min_range) & (rg_p < self.p.max_range)
-        n_valid = int(validh.sum())
-        if n_valid <= 1:           # preproData failure (GPisMap.cpp:145-148)
-            return
-        rmax = float(rg_p[validh].max())
-        g_max = nb // self.op.group_size + 2
-
-        node_ids = self._inview_node_ids(tr, rot, rmax)
-        n = len(node_ids)
-        k = _next_pow2(max(n, 1))
-        sel = np.full(k, -1, np.int32)
-        sel[:n] = node_ids
-        d = self.index.get_nodes(sel)
-        nvalid = np.zeros(k, bool)
-        nvalid[:n] = True
-        rv, nm = mapper2d.frame_update_2d(
-            self._t(th_p), self._t(rg_p), self._t(tr), self._t(rot),
-            self._t(d["pos"]), self._t(d["grad"]), self._t(d["pos_sig"]),
-            self._t(d["grad_sig"]), self._t(nvalid), self.p, self.op,
-            g_max=g_max)
-        rv, nm = _to_numpy(rv), _to_numpy(nm)
-        if n:
-            self.index.apply_reeval(
-                node_ids, rv.action[:n], rv.pos[:n], rv.grad[:n],
-                rv.noise[:n], rv.grad_noise[:n], rv.dbl_pos_sig[:n],
-                rv.dbl_grad_sig[:n], -self.p.fbias)
-        n_new = self._apply_newmeas(nm)
-
-        t1 = time.time()
-        self._retrain_store()
-        self.stats.update(
-            frame=self.frame, n_valid_beams=n_valid,
-            n_nodes=self.index.num_nodes,
-            n_cluster_cells=int(self.index.max_slot),
-            new_inserted=n_new,
-            support_overflow=int(self.index.overflow_count),
-            update_s=round(time.time() - t0, 4),
-            retrain_s=round(time.time() - t1, 4))
-        self.frame += 1
-
-    def update_batch(self, frames) -> None:
-        """Ingest several scans: frames is an iterable of (thetas, ranges,
-        pose6), the same as calling update() on each in turn."""
-        for th, rg, pose in frames:
-            self.update(th, rg, pose)
-
     def _apply_newmeas(self, nm) -> int:
         """Dedup + insert new hits (GPisMap.cpp:492-568). Returns the
         number of inserted nodes."""
@@ -163,34 +101,6 @@ class GPisMap2D:
                 ids[ins], np.full(ins.sum(), -self.p.fbias, np.float32),
                 nm.noise[ok][ins], nm.grad[ok][ins], nm.grad_noise[ok][ins])
         return int(ins.sum())
-
-    def _inview_cells(self, tr, rot, rmax):
-        """Cluster cells passing the range + FOV culls
-        (GPisMap.cpp:184-222), in reference traversal order."""
-        if self.index.num_nodes == 0:
-            return np.zeros(0, np.int32)
-        cells, _ = self.index.query_cluster_cells(tr, rmax, cap=65536)
-        if len(cells) == 0:
-            return cells
-        centers, halfs, _ = self.index.cell_info(cells)
-        # range cull (GPisMap.cpp:196-199)
-        sqr = np.sum((centers - tr) ** 2, -1)
-        keep = sqr <= rmax * rmax + 2.0 * halfs * halfs
-        # FOV cull by cell corners (GPisMap.cpp:202-222)
-        corners = centers[:, None, :] + halfs[:, None, None] * np.array(
-            [[-1, 1], [1, 1], [-1, -1], [1, -1]], np.float32)
-        loc = (corners - tr) @ rot
-        loc = loc - np.asarray(self.p.sensor_offset, np.float32)
-        ang = np.arctan2(loc[..., 1], loc[..., 0])
-        lim = self.p.angle_obs_limit
-        keep &= np.any((ang > lim[0]) & (ang < lim[1]), axis=-1)
-        return cells[keep]
-
-    def _inview_node_ids(self, tr, rot, rmax):
-        cells = self._inview_cells(tr, rot, rmax)
-        if len(cells) == 0:
-            return np.zeros(0, np.int32)
-        return np.concatenate([self.index.cell_nodes(c) for c in cells])
 
     # ------------------------------------------------------------------
     def _sync_mirror(self) -> None:
@@ -323,24 +233,13 @@ class GPisMap2D:
         self._factors = (linv_buf, uniq)
 
     # ------------------------------------------------------------------
-    def _test_kwargs(self) -> dict:
-        """The 2D query constants (GPisMap.cpp:671,685; OnGPIS.cpp:170-172)."""
-        return dict(
-            cell_size=self.cell_size, grid_half=self.grid_half,
-            noff=self._noff, search_half=self._search_half,
-            scale=self.p.map_scale_param, val_const=1.01,
-            grad_const=self.p.three_over_scale + 0.1,
-            var_thre=self.p.test_var_thre,
-            default_var=1.0 + self.p.map_noise_param,
-            tile=self.cap.test_tile, max_cells=self.cap.max_cells,
-            max_active=self.cap.test_active_cells)
-
     def test(self, x: np.ndarray) -> np.ndarray:
-        """Batched SDF query (GPisMap::test, GPisMap.cpp:765-810).
+        """Batched SDF query (GPisMap::test, GPisMap.cpp:765-810;
+        GPisMap3::test, GPisMap3.cpp:904-949).
 
-        x: [N, 2] world points. Returns [N, 6]:
-        [f, gx, gy, var_f, var_gx, var_gy] with the unmapped sentinel
-        var_f = 1 + map_noise (GPisMap.cpp:685).
+        x: [N, D] world points. Returns [N, 2 + 2D]: [f, grad (D),
+        var_f, var_grad (D)], with the unmapped sentinel var_f =
+        1 + map_noise (GPisMap.cpp:685).
         """
         x = np.asarray(x, np.float32).reshape(-1, self.dim)
         nq = x.shape[0]
@@ -370,3 +269,129 @@ class GPisMap2D:
     @property
     def num_nodes(self) -> int:
         return self.index.num_nodes
+
+
+class GPisMap2D(_MapperBase):
+    """Online continuous 2D SDF mapper from LiDAR scans.
+
+    update(thetas, ranges, pose6) ingests one scan with pose
+    [tx, ty, R00, R10, R01, R11] (column-major 2x2, mexGPisMap.cpp:57-67);
+    test(x) returns [N, 6] = [f, gx, gy, var_f, var_gx, var_gy]
+    (mexGPisMap.cpp:99). All GP state and math live on `device`, a CUDA
+    card unless the caller asks for the CPU; the spatial index lives on
+    the host.
+    """
+
+    def __init__(self, params: MapperParam = MAPPER_2D,
+                 obs_param: ObsGPParam = OBSGP_1D,
+                 tree: TreeParam = TREE_2D,
+                 cap: CapacityParam = CAPACITY_2D,
+                 device: torch.device | str = "cuda"):
+        # test search box: map_scale * 4 (GPisMap.cpp:680)
+        self._setup(params, obs_param, tree, cap, 2, device,
+                    search_half=params.map_scale_param * 4.0)
+
+    # ------------------------------------------------------------------
+    def update(self, thetas: np.ndarray, ranges: np.ndarray,
+               pose: np.ndarray) -> None:
+        """Ingest one scan (GPisMap::update, GPisMap.cpp:151-167). Per-frame
+        counters and timings land in self.stats."""
+        t0 = time.time()
+        thetas = np.asarray(thetas, np.float32).reshape(-1)
+        ranges = np.asarray(ranges, np.float32).reshape(-1)
+        pose = np.asarray(pose, np.float32).reshape(-1)
+        tr = pose[:2]
+        rot = pose[2:6].reshape(2, 2, order="F")
+
+        nb = _next_pow2(len(thetas))
+        th_p = np.zeros(nb, np.float32)
+        rg_p = np.zeros(nb, np.float32)     # padded beams: range 0, gated out
+        th_p[:len(thetas)] = thetas
+        rg_p[:len(ranges)] = ranges
+        # host range gate (the same as preprocess_2d's) for the in-view cull
+        validh = (rg_p > self.p.min_range) & (rg_p < self.p.max_range)
+        n_valid = int(validh.sum())
+        if n_valid <= 1:           # preproData failure (GPisMap.cpp:145-148)
+            return
+        rmax = float(rg_p[validh].max())
+        g_max = nb // self.op.group_size + 2
+
+        node_ids = self._inview_node_ids(tr, rot, rmax)
+        n = len(node_ids)
+        k = _next_pow2(max(n, 1))
+        sel = np.full(k, -1, np.int32)
+        sel[:n] = node_ids
+        d = self.index.get_nodes(sel)
+        nvalid = np.zeros(k, bool)
+        nvalid[:n] = True
+        rv, nm = mapper2d.frame_update_2d(
+            self._t(th_p), self._t(rg_p), self._t(tr), self._t(rot),
+            self._t(d["pos"]), self._t(d["grad"]), self._t(d["pos_sig"]),
+            self._t(d["grad_sig"]), self._t(nvalid), self.p, self.op,
+            g_max=g_max)
+        rv, nm = _to_numpy(rv), _to_numpy(nm)
+        if n:
+            self.index.apply_reeval(
+                node_ids, rv.action[:n], rv.pos[:n], rv.grad[:n],
+                rv.noise[:n], rv.grad_noise[:n], rv.dbl_pos_sig[:n],
+                rv.dbl_grad_sig[:n], -self.p.fbias)
+        n_new = self._apply_newmeas(nm)
+
+        t1 = time.time()
+        self._retrain_store()
+        self.stats.update(
+            frame=self.frame, n_valid_beams=n_valid,
+            n_nodes=self.index.num_nodes,
+            n_cluster_cells=int(self.index.max_slot),
+            new_inserted=n_new,
+            support_overflow=int(self.index.overflow_count),
+            update_s=round(time.time() - t0, 4),
+            retrain_s=round(time.time() - t1, 4))
+        self.frame += 1
+
+    def update_batch(self, frames) -> None:
+        """Ingest several scans: frames is an iterable of (thetas, ranges,
+        pose6), the same as calling update() on each in turn."""
+        for th, rg, pose in frames:
+            self.update(th, rg, pose)
+
+    def _inview_cells(self, tr, rot, rmax):
+        """Cluster cells passing the range + FOV culls
+        (GPisMap.cpp:184-222), in reference traversal order."""
+        if self.index.num_nodes == 0:
+            return np.zeros(0, np.int32)
+        cells, _ = self.index.query_cluster_cells(tr, rmax, cap=65536)
+        if len(cells) == 0:
+            return cells
+        centers, halfs, _ = self.index.cell_info(cells)
+        # range cull (GPisMap.cpp:196-199)
+        sqr = np.sum((centers - tr) ** 2, -1)
+        keep = sqr <= rmax * rmax + 2.0 * halfs * halfs
+        # FOV cull by cell corners (GPisMap.cpp:202-222)
+        corners = centers[:, None, :] + halfs[:, None, None] * np.array(
+            [[-1, 1], [1, 1], [-1, -1], [1, -1]], np.float32)
+        loc = (corners - tr) @ rot
+        loc = loc - np.asarray(self.p.sensor_offset, np.float32)
+        ang = np.arctan2(loc[..., 1], loc[..., 0])
+        lim = self.p.angle_obs_limit
+        keep &= np.any((ang > lim[0]) & (ang < lim[1]), axis=-1)
+        return cells[keep]
+
+    def _inview_node_ids(self, tr, rot, rmax):
+        cells = self._inview_cells(tr, rot, rmax)
+        if len(cells) == 0:
+            return np.zeros(0, np.int32)
+        return np.concatenate([self.index.cell_nodes(c) for c in cells])
+
+    # ------------------------------------------------------------------
+    def _test_kwargs(self) -> dict:
+        """The 2D query constants (GPisMap.cpp:671,685; OnGPIS.cpp:170-172)."""
+        return dict(
+            cell_size=self.cell_size, grid_half=self.grid_half,
+            noff=self._noff, search_half=self._search_half,
+            scale=self.p.map_scale_param, val_const=1.01,
+            grad_const=self.p.three_over_scale + 0.1,
+            var_thre=self.p.test_var_thre,
+            default_var=1.0 + self.p.map_noise_param,
+            tile=self.cap.test_tile, max_cells=self.cap.max_cells,
+            max_active=self.cap.test_active_cells)

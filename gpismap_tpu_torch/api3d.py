@@ -1,0 +1,229 @@
+"""User-facing 3D online GPIS mapper on PyTorch.
+
+Port of gpismap_tpu/api3d.py:GPisMap3D with its default "hybrid"
+re-evaluation (strict per-cell order as one vectorized pass plus mover
+fix-up rounds, models/mapper3d.reeval_hybrid_3d). The command surface is
+the reference's (update/test/reset/setCamera/getAllPoints;
+GPisMap3.h:124-133, mexGPisMap3.cpp:111-157); the host orchestration it
+shares with GPisMap2D lives in api._MapperBase.
+"""
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .api import _MapperBase, _next_pow2, _to_numpy
+from .config import (BIGBIRD_CAMS, CAPACITY_3D, MAPPER_3D, OBSGP_2D,
+                     TREE_3D, YCB_CAMS, CameraParam, CapacityParam,
+                     MapperParam, ObsGPParam, TreeParam)
+from .models import mapper3d
+
+# queries per chunk of the observation-GP posterior gather on the card:
+# each gathers its cell's [64, 64] L^-1 (16 KiB), so a chunk moves 1 GiB
+# (the dense sweep evaluates 7 x 76,800 posteriors per 640x480 frame)
+_CUDA_OBS_CHUNK = 1 << 16
+
+
+class GPisMap3D(_MapperBase):
+    """Online continuous 3D SDF mapper from depth images.
+
+    update(depth, pose12) ingests one [H, W] depth image (meters) with pose
+    [t(3), R column-major(9)] (mexGPisMap3.cpp convention); test(x)
+    returns [N, 8] = [f, gx, gy, gz, var_f, var_gx, var_gy, var_gz]
+    (mexGPisMap3.cpp:96-99). All GP state and math live on `device`, a
+    CUDA card unless the caller asks for the CPU; the spatial index lives
+    on the host.
+
+    reeval_mode: only "hybrid" (the JAX package's default); its
+    "strict", "snapshot" and "fused" modes are not ported.
+    """
+
+    def __init__(self, params: MapperParam = MAPPER_3D,
+                 obs_param: ObsGPParam = OBSGP_2D,
+                 tree: TreeParam = TREE_3D,
+                 cap: CapacityParam = CAPACITY_3D,
+                 camera: Optional[CameraParam] = None,
+                 compat_reloc: bool = True,
+                 reeval_mode: str = "hybrid",
+                 device: torch.device | str = "cuda"):
+        if reeval_mode != "hybrid":
+            raise NotImplementedError(
+                f"reeval_mode={reeval_mode!r}: the port runs the 'hybrid' "
+                f"re-evaluation only; the others wait for ROADMAP.md "
+                f"section 1, item 7 (the non-default modes)")
+        self.reeval_mode = reeval_mode
+        self.cam = camera or CameraParam()
+        self.compat_reloc = compat_reloc
+        # test search box: C_leng * 3 (GPisMap3.cpp:811)
+        self._setup(params, obs_param, tree, cap, 3, device,
+                    search_half=tree.cluster_halfleng * 3.0)
+        self._obs_chunk = (_CUDA_OBS_CHUNK if self.device.type == "cuda"
+                           else 4096)
+
+    # ------------------------------------------------------------------
+    def set_camera(self, cam_id_or_param, family: str = "bigbird"):
+        """Select intrinsics (mexGPisMap3.cpp:111-144): either a 1-based
+        camera id into the bigbird/YCB tables, or a CameraParam."""
+        if isinstance(cam_id_or_param, CameraParam):
+            self.cam = cam_id_or_param
+        else:
+            table = BIGBIRD_CAMS if family == "bigbird" else YCB_CAMS
+            self.cam = table[int(cam_id_or_param) - 1]
+
+    def _obs_limits(self):
+        """Image-plane visibility bounds (GPisMap3.cpp:169-172)."""
+        skip = self.p.obs_skip
+        m = self.cam.height // skip
+        n = self.cam.width // skip
+        u_lim = (-self.cam.cx / self.cam.fx,
+                 ((n - 1) * skip - self.cam.cx) / self.cam.fx)
+        v_lim = (-self.cam.cy / self.cam.fy,
+                 ((m - 1) * skip - self.cam.cy) / self.cam.fy)
+        return u_lim, v_lim
+
+    # ------------------------------------------------------------------
+    def update(self, depth: np.ndarray, pose: np.ndarray) -> None:
+        """Ingest one depth frame (GPisMap3::update, GPisMap3.cpp:218-237).
+        Per-frame counters and timings land in self.stats."""
+        t0 = time.time()
+        depth = np.asarray(depth, np.float32)
+        pose = np.asarray(pose, np.float32).reshape(-1)
+        tr = pose[:3]
+        rot = pose[3:12].reshape(3, 3, order="F")
+        nv, rmax = self._host_gate(depth)
+        if nv <= 1:
+            return
+        _, obs, nm = mapper3d.frame_compute_3d(
+            self._t(depth), self._t(tr), self._t(rot), self.cam, self.p,
+            self.op, chunk=self._obs_chunk)
+        nm = _to_numpy(nm)
+        self._update_map_points(obs, rmax, tr, rot)
+        self._apply_newmeas(nm)
+
+        t1 = time.time()
+        self._retrain_store()
+        self.stats.update(
+            frame=self.frame, n_nodes=self.index.num_nodes,
+            n_cluster_cells=int(self.index.max_slot),
+            support_overflow=int(self.index.overflow_count),
+            update_s=round(time.time() - t0, 4),
+            retrain_s=round(time.time() - t1, 4))
+        self.frame += 1
+
+    def update_batch(self, frames) -> None:
+        """Ingest several frames, the same as update() on each in turn:
+        frames is an iterable of (depth, pose12) or (depth, pose12, cam)
+        with cam a CameraParam or a 1-based bigbird camera id."""
+        for f in frames:
+            if len(f) > 2:
+                self.set_camera(f[2])
+            self.update(f[0], f[1])
+
+    def _host_gate(self, depth: np.ndarray):
+        """Host replica of preprocess_3d's range gate
+        (GPisMap3.cpp:176-210): (valid pixel count, max valid depth)."""
+        skip = self.p.obs_skip
+        mrow = self.cam.height // skip
+        ncol = self.cam.width // skip
+        z = depth[::skip, ::skip][:mrow, :ncol].astype(np.float32)
+        valid = (z > self.p.min_range) & (z < self.p.max_range)
+        rmax = float(np.max(np.where(valid, z, 0.0)))
+        return int(valid.sum()), rmax
+
+    def _cull_cells(self, rmax: float, tr, rot) -> np.ndarray:
+        """Range + frustum cell culls (GPisMap3.cpp:276-301)."""
+        if self.index.num_nodes == 0:
+            return np.zeros(0, np.int32)
+        cells, _ = self.index.query_cluster_cells(tr, rmax, cap=65536)
+        if len(cells) == 0:
+            return cells
+        centers, halfs, _ = self.index.cell_info(cells)
+        sqr = np.sum((centers - tr) ** 2, -1)
+        keep = sqr <= rmax * rmax + 2.0 * halfs * halfs
+        # frustum cull by corners; the reference overwrites within_angle
+        # per z>0 corner so only the LAST front corner decides
+        # (GPisMap3.cpp:289-301) — replicated.
+        signs = np.array([[-1, 1, 1], [1, 1, 1], [-1, -1, 1], [1, -1, 1],
+                          [-1, 1, -1], [1, 1, -1], [-1, -1, -1],
+                          [1, -1, -1]], np.float32)
+        corners = centers[:, None, :] + halfs[:, None, None] * signs
+        loc = (corners - tr) @ rot                     # [C, 8, 3]
+        u_lim, v_lim = self._obs_limits()
+        z = loc[..., 2]
+        front = z > 0
+        xv = loc[..., 0] / np.where(front, z, 1.0)
+        yv = loc[..., 1] / np.where(front, z, 1.0)
+        vis = ((xv > u_lim[0]) & (xv < u_lim[1])
+               & (yv > v_lim[0]) & (yv < v_lim[1]))
+        within = np.zeros(len(cells), bool)
+        for c in range(8):                             # replay overwrite
+            within = np.where(front[:, c], vis[:, c], within)
+        keep &= within
+        return cells[keep]
+
+    def _update_map_points(self, obs, rmax: float, tr, rot) -> None:
+        """Re-evaluate the nodes of the kept cells and apply the outcome
+        on the host index."""
+        kept = self._cull_cells(rmax, tr, rot)
+        if len(kept) == 0:
+            return
+        disp = self._dispatch_reeval_fused(obs, kept, tr, rot)
+        if disp is not None:
+            self._apply_reeval_fused(*disp)
+
+    def _dispatch_reeval_fused(self, obs, kept, tr, rot):
+        """Gather the kept cells' nodes and run reeval_hybrid_3d on them.
+        Returns (node_ids, Reeval3D on the host, n_dropped), or None when
+        the cells hold no nodes."""
+        lists = [self.index.cell_nodes(c) for c in kept]
+        node_ids = np.concatenate(lists)
+        n = len(node_ids)
+        if n == 0:
+            return None
+        k = _next_pow2(n)
+        sel = np.full(k, -1, np.int32)
+        sel[:n] = node_ids
+        d = self.index.get_nodes(sel)
+        valid = np.zeros(k, bool)
+        valid[:n] = True
+        centers, _, _ = self.index.cell_info(kept)
+        cpad = _next_pow2(len(kept), lo=8)
+        cc = np.zeros((cpad, 3), np.int32)
+        cc[:len(kept)] = np.floor(centers / self.cell_size).astype(np.int32)
+        cok = np.zeros(cpad, bool)
+        cok[:len(kept)] = True
+        rv, drop = mapper3d.reeval_hybrid_3d(
+            obs, self._t(d["pos"]), self._t(d["grad"]),
+            self._t(d["pos_sig"]), self._t(d["grad_sig"]), self._t(valid),
+            self._t(cc), self._t(cok), self._t(tr), self._t(rot),
+            np.float32(self.cell_size), self.p, self.op,
+            chunk=self._obs_chunk, compat=self.compat_reloc)
+        return node_ids, _to_numpy(rv), drop
+
+    def _apply_reeval_fused(self, node_ids, rv, drop) -> None:
+        """Host apply of the re-evaluation's final per-node actions."""
+        n = len(node_ids)
+        if drop:
+            self.stats["reeval_dropped"] = (
+                self.stats.get("reeval_dropped", 0) + int(drop))
+        self.index.apply_reeval(
+            node_ids, rv.action[:n], rv.pos[:n], rv.grad[:n], rv.noise[:n],
+            rv.grad_noise[:n], rv.dbl_pos_sig[:n], rv.dbl_grad_sig[:n],
+            -self.p.fbias)
+
+    # ------------------------------------------------------------------
+    def _test_kwargs(self) -> dict:
+        """The 3D query constants (testSinglePoint, OnGPIS.cpp:208-213;
+        var threshold 0.5, GPisMap3.cpp:800)."""
+        return dict(
+            cell_size=self.cell_size, grid_half=self.grid_half,
+            noff=self._noff, search_half=self._search_half,
+            scale=self.p.map_scale_param, val_const=1.001,
+            grad_const=self.p.three_over_scale + 0.001,
+            var_thre=self.p.test_var_thre,
+            default_var=1.0 + self.p.map_noise_param,
+            tile=self.cap.test_tile, max_cells=self.cap.max_cells,
+            max_active=self.cap.test_active_cells)

@@ -14,10 +14,11 @@ from .models import cluster
 
 def state_from_numpy(index_blob: np.ndarray, store_arrays, frame: int,
                      mapper):
-    """Load a saved 2D map into `mapper` (a gpismap_tpu_torch.GPisMap2D
-    with the same tree parameters and capacities). store_arrays maps
-    `store_<field>` to the ClusterStore field's numpy array (an np.load
-    of a checkpoint .npz works as is). Returns the mapper."""
+    """Load a saved map into `mapper` (a gpismap_tpu_torch.GPisMap2D or
+    GPisMap3D with the same dimension, tree parameters and capacities).
+    store_arrays maps `store_<field>` to the ClusterStore field's numpy
+    array (an np.load of a checkpoint .npz works as is). Returns the
+    mapper."""
     fields = {}
     for name in cluster.ClusterStore._fields:
         ref = getattr(mapper.store, name)

@@ -12,8 +12,9 @@
 //                   substitution; strict upper triangle exact zeros (the
 //                   tile kernel, csrc/tile_eval.cu, skips it and relies on
 //                   them).
-// n <= 512, fp32 FMAs only: no TF32 and no tensor cores (the map query's
-// variance is a cancellation, const - ||L^-1 k*||^2).
+// n <= 1280 (2D: 96/192/384; 3D: 320/640/1280), fp32 FMAs only: no TF32
+// and no tensor cores (the map query's variance is a cancellation,
+// const - ||L^-1 k*||^2).
 //
 // What bounds them on the H100. Both are n^3/6 multiply-adds per matrix
 // (9.4 M at n = 384) on dependent 32-wide steps, so latency along the
@@ -24,7 +25,10 @@
 // whole chunks of matrices in VMEM (pallas_chol.py:156-163). Here each
 // matrix lives in device memory and the L2: the retrain batch (at most
 // 64 x 576 KB = 37.7 MB) fits the 50 MB L2; the factor-cache fill (up to
-// 512 matrices, 302 MB) streams from HBM.
+// 512 matrices, 302 MB) streams from HBM, and so does every 3D batch (one
+// [1280, 1280] matrix is 6.55 MB; a retrain chunk of 64 is 419 MB). Shared
+// memory per block at n = 1280: 173 KB for chol, 177 KB for linv, under the
+// 227 KB a block may use; the launchers raise the limit to it.
 //
 // chol design: one block per matrix, right-looking over 32-wide column
 // panels. The diagonal 32x32 block is factored in shared memory by one

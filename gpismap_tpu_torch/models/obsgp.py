@@ -1,10 +1,12 @@
-"""Partitioned 1D observation GP of a LiDAR scan (batched).
+"""Partitioned observation GPs of a LiDAR scan (1D) or a depth image (2D).
 
-Port of the 1D half of gpismap_tpu/models/obsgp.py: the reference trains
-one tiny OU-kernel GP per overlapping group of scan samples
-(ObsGP.cpp:85-187); here all groups train as one batched Cholesky with
-validity masks, and test points evaluate by gathering their group's
-precomputed L^-1.
+Port of gpismap_tpu/models/obsgp.py: the reference trains one tiny
+OU-kernel GP per overlapping group of scan samples (1D, ObsGP.cpp:85-187)
+or per grid cell of a depth image (2D, ObsGP.cpp:193-463); here all
+groups train as one batched Cholesky with validity masks, and test points
+evaluate by gathering their group's precomputed L^-1. The JAX package's
+compacted fit (c_cap) and cell-blocked evaluator (obsgp2d_test_blocked,
+ownership_1axis) are not ported.
 """
 from __future__ import annotations
 
@@ -131,3 +133,109 @@ def obsgp1d_test(state: ObsGP1DState, q: torch.Tensor, param: ObsGPParam,
         gidx_c, q[:, None], param.scale, param.noise, chunk)
     return (torch.where(ok, mean, 0.0),
             torch.where(ok, var, _PAD_INVALID))
+
+
+class ObsGP2DState(NamedTuple):
+    """Batched partitioned 2D depth-grid GP (reference: ObsGP.h:105-148)."""
+
+    x: torch.Tensor          # [C, M, 2] per-cell (v, u) inputs
+    valid: torch.Tensor      # [C, M]
+    alpha: torch.Tensor      # [C, M]
+    linv: torch.Tensor       # [C, M, M]
+    trained: torch.Tensor    # [C]
+    val_i: torch.Tensor      # [nG0 + 1] v boundaries
+    val_j: torch.Tensor      # [nG1 + 1] u boundaries
+
+
+def partition_1axis(n: int, gs: int, ov: int):
+    """Static per-axis partition (ObsGP.cpp:204-265). Returns
+    (n_groups, i0 [nG], i1 [nG] inclusive, boundary_index [nG])."""
+    n_groups = (n - ov) // gs + 1
+    i0 = [g * gs for g in range(n_groups)]
+    i1 = [g * gs + gs + ov - 1 if g < n_groups - 1 else n - 1
+          for g in range(n_groups)]
+    # boundary sample: i1 - ov//2 for interior, n-1 for the last
+    bnd = [i1[g] - ov // 2 if g < n_groups - 1 else n - 1
+           for g in range(n_groups)]
+    return n_groups, i0, i1, bnd
+
+
+def fit_obsgp2d(v_coords: torch.Tensor, u_coords: torch.Tensor,
+                f: torch.Tensor, param: ObsGPParam) -> ObsGP2DState:
+    """Train the partitioned 2D observation GP (ObsGP.cpp:280-342), every
+    cell of the static partition at once (the JAX package's c_cap=None
+    branch).
+
+    v_coords: [NI] row ray coordinates (v = (row - cy)/fy, ascending);
+    u_coords: [NJ] column ray coordinates (u = (col - cx)/fx, ascending);
+    f: [NI, NJ] regression target (inverse depth 1/z; <= 0 marks invalid
+    pixels, ObsGP.cpp:304).
+    """
+    dev = f.device
+    ni, nj = int(v_coords.shape[0]), int(u_coords.shape[0])
+    gs, ov = param.group_size, param.overlap
+    ng0, i0s, i1s, bnd_i = partition_1axis(ni, gs, ov)
+    ng1, j0s, j1s, bnd_j = partition_1axis(nj, gs, ov)
+    win = gs + ov  # max window extent per axis (i1 - i0 + 1 <= gs + ov)
+
+    def window(starts, ends, n):
+        w = (torch.tensor(starts, device=dev)[:, None]
+             + torch.arange(win, device=dev)[None, :])          # [nG, W]
+        inr = w <= torch.tensor(ends, device=dev)[:, None]
+        return torch.clamp(w, 0, n - 1), inr
+
+    i0c, irange = window(i0s, i1s, ni)
+    j0c, jrange = window(j0s, j1s, nj)
+    # cell (a, b) window pixels ordered column-outer/row-inner, the
+    # reference's gather order (ObsGP.cpp:301-309)
+    rows = i0c[:, None, None, :]            # [nG0, 1, 1, W] (inner)
+    cols = j0c[None, :, :, None]            # [1, nG1, W, 1] (outer)
+    fv = f[rows, cols]                      # [nG0, nG1, Wj, Wi]
+    inwin = irange[:, None, None, :] & jrange[None, :, :, None]
+    pix_ok = inwin & (fv > 0)
+
+    vs = v_coords[rows] + torch.zeros_like(fv)
+    us = u_coords[cols] + torch.zeros_like(fv)
+    m = win * win
+    c = ng0 * ng1
+    # cell-major flatten: cell index (a, b) -> a * nG1 + b
+    x = torch.stack([vs, us], dim=-1).reshape(c, m, 2)
+    fcell = fv.reshape(c, m)
+    vmask = pix_ok.reshape(c, m)
+
+    st = gp.fit_gpou(x, fcell, vmask, param.scale, param.noise)
+    val_i = torch.cat([v_coords[:1], v_coords[torch.tensor(bnd_i,
+                                                           device=dev)]])
+    val_j = torch.cat([u_coords[:1], u_coords[torch.tensor(bnd_j,
+                                                           device=dev)]])
+    return ObsGP2DState(x=x, valid=vmask, alpha=st.alpha,
+                        linv=gp.gpou_linv(st.l),
+                        trained=torch.any(vmask, dim=-1),
+                        val_i=val_i, val_j=val_j)
+
+
+def obsgp2d_test(state: ObsGP2DState, vu: torch.Tensor, param: ObsGPParam,
+                 chunk: int = 4096):
+    """Posterior at vu [Q, 2] = (v, u) pairs (ObsGP.cpp:352-408), each
+    query gathering its owning cell's factor. Returns (mean [Q], var [Q])
+    with the 1e6 sentinel outside the margins."""
+    ng1 = state.val_j.shape[0] - 1
+    v, u = vu[:, 0], vu[:, 1]
+    m_ok = ((v >= state.val_i[0] + param.margin)
+            & (v <= state.val_i[-1] - param.margin)
+            & (u >= state.val_j[0] + param.margin)
+            & (u <= state.val_j[-1] - param.margin))
+    # first boundary strictly greater (reference `if (x < *it) break`,
+    # ObsGP.cpp:381-391): the count of interior boundaries <= x, which
+    # searchsorted(right=True) gives on the ascending boundaries
+    a = torch.searchsorted(state.val_i[1:].contiguous(), v.contiguous(),
+                           right=True)
+    b = torch.searchsorted(state.val_j[1:].contiguous(), u.contiguous(),
+                           right=True)
+    a = torch.clamp(a, 0, state.val_i.shape[0] - 2)
+    b = torch.clamp(b, 0, ng1 - 1)
+    mean, var = gp.gpou_posterior_gather(
+        state.x, state.alpha, state.linv, state.valid, state.trained,
+        a * ng1 + b, vu, param.scale, param.noise, chunk)
+    return (torch.where(m_ok, mean, 0.0),
+            torch.where(m_ok, var, _PAD_INVALID))

@@ -8,7 +8,8 @@ Port of gpismap_tpu/ops/pallas_chol.py (chol_pallas, linv_pallas):
   linv(l)   l [B, n, n] lower triangular -> L^-1, exact zeros above the
             diagonal
 
-n <= 512 (the cluster systems are n = 96, 192 or 384 in 2D). Each runs
+n <= 1280 (the cluster systems are n = 96, 192 or 384 in 2D and 320,
+640 or 1280 in 3D). Each runs
 the plain version for a CPU tensor and the hand-written kernel
 (csrc/chol.cu) for a CUDA tensor; there is no fallback from one to the
 other. On a non-positive pivot the kernel clamps it to sqrt(1e-30), as
@@ -26,7 +27,7 @@ import torch
 from .. import _native
 
 _SRC = os.path.join(_native.PKG_DIR, "csrc", "chol.cu")
-MAX_N = 512
+MAX_N = 1280
 _LOCK = threading.Lock()
 _LIB: Optional[ct.CDLL] = None
 # launches of the CUDA kernels by chol and linv (not of the plain versions)

@@ -14,7 +14,7 @@ signature and layouts:
   -> (f [NT, T], g [NT, D, T], vf [NT, T], vg [NT, D, T])
 
 `tile_eval` runs the plain version for CPU tensors and the hand-written
-kernel (csrc/tile_eval.cu, d = 2 only) for CUDA tensors; there is no
+kernel (csrc/tile_eval.cu, d = 2 or 3) for CUDA tensors; there is no
 fallback from one to the other.
 """
 from __future__ import annotations
@@ -51,10 +51,10 @@ def _lib() -> ct.CDLL:
             lib = ct.CDLL(path)
             lib.tile_eval_launch.restype = ct.c_int
             lib.tile_eval_launch.argtypes = (
-                [ct.c_void_p] * 11 + [ct.c_int] * 4 + [ct.c_float] * 3
+                [ct.c_void_p] * 11 + [ct.c_int] * 5 + [ct.c_float] * 3
                 + [ct.c_void_p])
             lib.tile_eval_smem_bytes.restype = ct.c_longlong
-            lib.tile_eval_smem_bytes.argtypes = [ct.c_int]
+            lib.tile_eval_smem_bytes.argtypes = [ct.c_int, ct.c_int]
             lib.tile_eval_error_string.restype = ct.c_char_p
             lib.tile_eval_error_string.argtypes = [ct.c_int]
             _LIB = lib
@@ -106,8 +106,9 @@ def tile_eval(tile_seg: torch.Tensor, linv: torch.Tensor, xt: torch.Tensor,
                                    val_const=val_const, grad_const=grad_const)
     if dev.type != "cuda":
         raise ValueError(f"tile_eval: unsupported device {dev}")
-    if d != 2:
-        raise ValueError(f"tile_eval: the CUDA kernel takes d=2, got {d}")
+    if d not in (2, 3):
+        raise ValueError(f"tile_eval: the CUDA kernel takes d=2 or d=3, "
+                         f"got {d}")
     nt, _, t = qt.shape
     s, mp, _ = linv.shape
     m = xt.shape[-1]
@@ -138,12 +139,13 @@ def tile_eval(tile_seg: torch.Tensor, linv: torch.Tensor, xt: torch.Tensor,
         rc = lib.tile_eval_launch(
             *(x.data_ptr() for x in args),
             f.data_ptr(), g.data_ptr(), vf.data_ptr(), vg.data_ptr(),
-            nt, s, m, t, float(scale), float(val_const), float(grad_const),
-            stream)
+            nt, s, d, m, t, float(scale), float(val_const),
+            float(grad_const), stream)
     if rc != 0:
         raise RuntimeError(
             f"tile_eval kernel launch failed: CUDA error {rc} "
             f"({lib.tile_eval_error_string(rc).decode()}); a block needs "
-            f"{lib.tile_eval_smem_bytes(m)} B of shared memory at M={m}")
+            f"{lib.tile_eval_smem_bytes(d, m)} B of shared memory at d={d}, "
+            f"M={m}")
     launches += 1
     return f, g, vf, vg

@@ -69,6 +69,28 @@ def test_linv_reference_matches_pallas_kernel():
     assert _upper_is_zero(w_t)
 
 
+@pytest.mark.parametrize("mp", [640, 1280])
+def test_references_match_pallas_kernels_3d_sizes(mp):
+    """chol_reference and linv_reference == chol_pallas and linv_pallas
+    (interpret mode) at the 3D bucket sizes above 512 (MP = 640, 1280),
+    with identity-masked rows, at B = 1: interpret mode runs those in
+    seconds."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from gpismap_tpu.ops.pallas_chol import chol_pallas, linv_pallas
+
+    k = _spd_batch(np.random.default_rng(mp), 1, mp, [(0, 7), (0, mp - 3)])
+    l_pl = np.asarray(chol_pallas(jnp.asarray(k), interpret=True))
+    l_t = chol_ops.chol_reference(torch.as_tensor(k))
+    np.testing.assert_allclose(l_t.numpy(), l_pl, rtol=L_TOL, atol=L_TOL)
+    assert _upper_is_zero(l_t)
+    l = np.linalg.cholesky(k.astype(np.float64)).astype(np.float32)
+    w_pl = np.asarray(linv_pallas(jnp.asarray(l), interpret=True))
+    w_t = chol_ops.linv_reference(torch.as_tensor(l)).numpy()
+    assert np.abs(w_t - w_pl).max() <= LINV_REL_TOL * np.abs(w_pl).max()
+    assert (np.triu(w_t, 1) == 0).all()
+
+
 def test_fit_and_factor_path_matches_jax_with_pallas_gate(monkeypatch):
     """The port's fit_ongpis + linv_from_chol == the JAX package's with
     GPISMAP_PALLAS_CHOL=1 (its Pallas kernels in interpret mode), on the
@@ -134,11 +156,14 @@ def _cuda_case(b, mp, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,mp", [(b, mp) for b in (1, 8, 64)
                                   for mp in (96, 192, 384)]
-                         + [(512, 384), (4, 48), (3, 100)])
+                         + [(512, 384), (4, 48), (3, 100)]
+                         + [(b, mp) for b in (1, 8, 64)
+                            for mp in (320, 640, 1280)])
 def test_cuda_kernels_match_plain_versions(b, mp):
     """chol and linv on the card == their plain versions: the retrain's
-    batches (B 1 to 64 at the bucket sizes 96/192/384), the fill (B = 512
-    at 384) and ragged sizes; identity-masked rows come out exact,
+    batches (B 1 to 64 at the bucket sizes 96/192/384 in 2D and
+    320/640/1280 in 3D), the fill (B = 512 at 384) and ragged sizes;
+    identity-masked rows come out exact,
     strict upper triangles are exact zeros, and each call counts one
     launch."""
     if not torch.cuda.is_available():
@@ -170,5 +195,5 @@ def test_cuda_kernels_match_plain_versions(b, mp):
                                                             eye[j])
     with pytest.raises(ValueError, match="not contiguous"):
         chol_ops.chol(k.mT)
-    with pytest.raises(ValueError, match="n=513"):
-        chol_ops.linv(torch.zeros((1, 513, 513), device="cuda"))
+    with pytest.raises(ValueError, match="n=1281"):
+        chol_ops.linv(torch.zeros((1, 1281, 1281), device="cuda"))

@@ -179,7 +179,7 @@ def _all_node_ids(index):
 def test_action1_doubles_node_noises(mode):
     """The port's update path applies action 1 as an exact 2x of both
     noises (mirrors tests/test_reeval_actions.py)."""
-    m = GPisMap2D()
+    m = GPisMap2D(device="cpu")
     m.update(*_wall_scan(2.03))
     ids = _all_node_ids(m.index)
     before = m.index.get_nodes(ids)

@@ -44,7 +44,7 @@ def frames():
 
 def _mappers():
     return JaxMapper(cap=JaxCapacity(**TINY)), GPisMap2D(
-        cap=CapacityParam(**TINY))
+        cap=CapacityParam(**TINY), device="cpu")
 
 
 def _to_jax(nt):
@@ -89,7 +89,8 @@ def test_mirror_rejects_node_ids_beyond_max_nodes(frames):
     with pytest.raises(ValueError, match="max_nodes"):
         tcl.scatter_mirror(mirror, torch.tensor([2, 8], dtype=torch.int32),
                            *(torch.as_tensor(r) for r in rows))
-    m = GPisMap2D(cap=CapacityParam(**dict(TINY, max_nodes=16)))
+    m = GPisMap2D(cap=CapacityParam(**dict(TINY, max_nodes=16)),
+                  device="cpu")
     with pytest.raises(ValueError, match="mirror of 16 rows"):
         m.update(*frames[0])
 
@@ -217,7 +218,7 @@ def test_incremental_refresh_matches_fresh_and_jax(frames):
 
 
 def test_factor_cache_dropped_on_slot_set_change(frames):
-    mt = GPisMap2D(cap=CapacityParam(**TINY))
+    mt = GPisMap2D(cap=CapacityParam(**TINY), device="cpu")
     mt.update(*frames[0])
     mt.test(_queries(50))
     live = mt._live_slots()
@@ -229,7 +230,7 @@ def test_factor_cache_dropped_on_slot_set_change(frames):
 
 def test_mirror_matches_host_gather(frames):
     """After every frame the mirror holds every live node's host row."""
-    mt = GPisMap2D(cap=CapacityParam(**TINY))
+    mt = GPisMap2D(cap=CapacityParam(**TINY), device="cpu")
     for f in frames:
         mt.update(*f)
         d = mt.index.dump_nodes()

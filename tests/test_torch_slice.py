@@ -36,7 +36,7 @@ def _queries(n=600, seed=5):
 def mappers():
     """Both mappers after the same 3 frames of the synthetic room."""
     mj = JaxMapper(cap=JaxCapacity(**TINY))
-    mt = GPisMap2D(cap=CapacityParam(**TINY))
+    mt = GPisMap2D(cap=CapacityParam(**TINY), device="cpu")
     for frame in torch_scenes.room_frames(3, 181):
         mj.update(*frame)
         mt.update(*frame)
@@ -114,7 +114,7 @@ def test_carried_map_answers_like_jax(mappers):
     """A JAX map carried across with state_from_numpy gives the same
     test() answers in the port (the fields runtime/checkpoint.py saves)."""
     mj, _ = mappers
-    m2 = GPisMap2D(cap=CapacityParam(**TINY))
+    m2 = GPisMap2D(cap=CapacityParam(**TINY), device="cpu")
     store = {f"store_{k}": np.asarray(v) for k, v in
              mj.store._asdict().items()}
     state_from_numpy(mj.index.serialize(), store, mj.frame, m2)
@@ -130,13 +130,14 @@ def test_state_from_numpy_rejects_other_capacities(mappers):
     with pytest.raises(ValueError, match="capacity mismatch"):
         state_from_numpy(mj.index.serialize(), store, 0,
                          GPisMap2D(cap=CapacityParam(**dict(TINY,
-                                                            max_cells=32))))
+                                                            max_cells=32)),
+                                   device="cpu"))
 
 
 def test_update_batch_and_reset():
     frames = torch_scenes.room_frames(2, 91)
-    a = GPisMap2D(cap=CapacityParam(**TINY))
-    b = GPisMap2D(cap=CapacityParam(**TINY))
+    a = GPisMap2D(cap=CapacityParam(**TINY), device="cpu")
+    b = GPisMap2D(cap=CapacityParam(**TINY), device="cpu")
     for f in frames:
         a.update(*f)
     b.update_batch(frames)
@@ -152,11 +153,18 @@ def test_update_batch_and_reset():
 
 def test_import_leaves_jax_out():
     """The port imports torch and never jax (the GPU host has none), nor
-    the JAX package."""
-    code = ("import sys, gpismap_tpu_torch, gpismap_tpu_torch.convert; "
-            "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith(('jax.', 'jaxlib', 'gpismap_tpu.')) or "
-            "m == 'gpismap_tpu']; print(bad); sys.exit(1 if bad else 0)")
+    any module of the JAX package: after the import and a construction
+    of each mapper on the CPU, no loaded module comes from gpismap_tpu/."""
+    code = (
+        "import os, sys\n"
+        "import gpismap_tpu_torch as g, gpismap_tpu_torch.convert\n"
+        "g.GPisMap2D(device='cpu'); g.GPisMap3D(device='cpu')\n"
+        "ref = os.path.join(os.getcwd(), 'gpismap_tpu') + os.sep\n"
+        "bad = [n for n, m in list(sys.modules.items())\n"
+        "       if n == 'jax' or n.startswith(('jax.', 'jaxlib'))\n"
+        "       or os.path.abspath(getattr(m, '__file__', None) or '')\n"
+        "       .startswith(ref)]\n"
+        "print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr

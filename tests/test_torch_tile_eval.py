@@ -82,6 +82,39 @@ def test_reference_matches_pallas_kernel_and_xla_twin():
                                    rtol=1e-4, atol=1e-4, err_msg=name)
 
 
+@pytest.mark.parametrize("panel", [None, 32, 16])
+def test_reference_3d_matches_pallas_kernel_and_xla_twin(panel):
+    """At d = 3 (MP = 4M = 64): tile_eval_reference == tile_eval_pallas
+    (interpret mode), also on its row-panelled path (panel_override, as
+    the Pallas kernel runs MP > 512), and == the JAX twin
+    _ongpis_eval_tile, to 1e-4 (f32 rounding order only)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from gpismap_tpu.models.cluster import ClusterStore, _ongpis_eval_tile
+    from gpismap_tpu.ops.pallas_tile import tile_eval_pallas
+
+    store, args, q = _tile_case(np.random.default_rng(30), 4, 16, 8, 6, d=3)
+    out = tile_ops.tile_eval_reference(*args, **_kw(d=3))
+    ja = [jnp.asarray(a.numpy()) for a in args]
+    pal = tile_eval_pallas(*ja, interpret=True, panel_override=panel,
+                           **_kw(d=3))
+    jstore = ClusterStore(**{k: jnp.asarray(v.numpy())
+                             for k, v in store._asdict().items()})
+    segs = np.maximum(args[0].numpy(), 0)
+    twin = _ongpis_eval_tile(jstore, ja[1], jnp.arange(4, dtype=jnp.int32),
+                             jnp.asarray(segs), jnp.asarray(q), SCALE,
+                             VAL_CONST, GRAD_CONST)
+    twin = (twin[0], jnp.swapaxes(twin[1], -1, -2), twin[2],
+            jnp.swapaxes(twin[3], -1, -2))
+    act = args[0].numpy() >= 0
+    assert out[1].shape == (6, 3, 8)
+    for name, o, p, w in zip(("f", "g", "vf", "vg"), out, pal, twin):
+        np.testing.assert_allclose(o.numpy()[act], np.asarray(p)[act],
+                                   rtol=1e-4, atol=1e-4, err_msg=name)
+        np.testing.assert_allclose(o.numpy()[act], np.asarray(w)[act],
+                                   rtol=1e-4, atol=1e-4, err_msg=name)
+
+
 def test_ongpis_eval_tile_twin_matches_jax():
     pytest.importorskip("jax")
     import jax.numpy as jnp
@@ -196,5 +229,29 @@ def test_cuda_kernel_matches_plain_version(m, t, nt):
     for name, a, b in zip(("f", "g", "vf", "vg"), out, ref):
         err = float((a[act] - b[act]).abs().max())
         assert err <= 1e-4, (name, err)
-    with pytest.raises(ValueError, match="d=2"):
-        tile_ops.tile_eval(*args, **_kw(d=3))
+    with pytest.raises(ValueError, match="got 4"):
+        tile_ops.tile_eval(*args, **_kw(d=4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,t,nt", [(320, 128, 24), (16, 8, 6),
+                                    (40, 100, 9), (100, 36, 5)])
+def test_cuda_kernel_3d_matches_plain_version(m, t, nt):
+    """The d=3 instance of the CUDA kernel == tile_eval_reference on the
+    card: the 3D production shape (M=320, MP=1280, T=128), the shapes of
+    tests/test_pallas.py and ragged sizes (MP not a multiple of the 128
+    rows of a row block, T not a multiple of the 8 queries of a block)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA: the tile kernel has no "
+                    "CPU mode")
+    _, args, _ = _tile_case(np.random.default_rng(m + 3), 6, m, t, nt, d=3)
+    args = tuple(a.cuda() for a in args)
+    before = tile_ops.launches
+    out = tile_ops.tile_eval(*args, **_kw(d=3))
+    torch.cuda.synchronize()
+    assert tile_ops.launches == before + 1
+    ref = tile_ops.tile_eval_reference(*args, **_kw(d=3))
+    act = args[0] >= 0
+    for name, a, b in zip(("f", "g", "vf", "vg"), out, ref):
+        err = float((a[act] - b[act]).abs().max())
+        assert err <= 1e-4, (name, err)

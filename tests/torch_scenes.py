@@ -1,12 +1,22 @@
-"""Synthetic 2D LiDAR scenes for the PyTorch port (numpy only).
+"""Synthetic 2D LiDAR and 3D depth scenes for the PyTorch port (numpy
+only).
 
-A polygonal floor plan inside the extent of the gazebo demo grid
+2D: a polygonal floor plan inside the extent of the gazebo demo grid
 (x in [-5, 20], y in [-15, 5], gpismap_tpu.datasets.gazebo_test_grid),
 ray-cast for a scanner with the gazebo sequence's geometry: 1081 beams
 over +-135 degrees, 30 m maximum range, mounted 0.08 m ahead of the
 pose (MAPPER_2D.sensor_offset). Beams that hit nothing return the
-maximum range, which the mapper's range gate drops. Used by the CPU
-parity tests (at few beams) and by chip_smoke.py (at full width).
+maximum range, which the mapper's range gate drops.
+
+3D: a box and a cylinder standing on z = 0 inside the bigbird demo
+volume (x in [-0.07, 0.13], y in [-0.1, 0.14], z in [0, 0.28],
+gpismap_tpu.datasets.bigbird_test_grid), ray-cast into depth images
+(meters) of a pinhole camera on a ring of poses 0.62-0.70 m away, as the
+bigbird rig circles its object. Pixels that hit nothing read BACKGROUND,
+beyond MAPPER_3D.max_range, so the range gate drops them.
+
+Used by the CPU parity tests (few beams, a 64x48 camera) and by
+chip_smoke.py (at full width: 1081 beams, 640x480 depth).
 """
 from __future__ import annotations
 
@@ -199,3 +209,160 @@ def wall_probes(walls: np.ndarray, poses: np.ndarray, offset: float = 0.3,
             near.append(w + side * offset * nrm)
             far.append(w - side * offset * nrm)
     return np.asarray(near, np.float32), np.asarray(far, np.float32)
+
+
+# ---- 3D: an object in the bigbird demo volume --------------------------
+VOLUME_X = (-0.07, 0.13)
+VOLUME_Y = (-0.1, 0.14)
+VOLUME_Z = (0.0, 0.28)
+# an upright box and cylinder; coordinates stay off the octree's 0.0125 m
+# leaf lattice
+BOX = (np.array([-0.0437, -0.0713, 0.0]), np.array([0.0361, 0.0089, 0.1693]))
+CYLINDER = (0.0731, 0.0787, 0.0347, 0.0, 0.2213)   # cx, cy, r, z0, z1
+RING_CENTER = (0.03, 0.02)
+LOOK_AT_Z = 0.11
+BACKGROUND = 5.0          # depth of a pixel that hits nothing (> 4 m)
+
+
+def ring_poses(n: int) -> np.ndarray:
+    """n camera poses [n, 12] = [t(3), R column-major(9)] (the 3D mapper's
+    convention, R world-from-camera: x right, y down, z forward) on a
+    ring around the object at alternating radii (0.62 / 0.70 m) and
+    heights (0.18 to 0.42 m), each looking at the object's middle."""
+    poses = []
+    for i in range(n):
+        ang = 2.0 * np.pi * i / n
+        rad = (0.62, 0.70)[i % 2]
+        eye = np.array([RING_CENTER[0] + rad * np.cos(ang),
+                        RING_CENTER[1] + rad * np.sin(ang),
+                        (0.18, 0.30, 0.42, 0.30)[i % 4]])
+        fwd = np.array([RING_CENTER[0], RING_CENTER[1], LOOK_AT_Z]) - eye
+        fwd /= np.linalg.norm(fwd)
+        right = np.cross(fwd, [0.0, 0.0, 1.0])
+        right /= np.linalg.norm(right)
+        down = np.cross(fwd, right)
+        rot = np.stack([right, down, fwd], axis=1)
+        poses.append(np.concatenate([eye, rot.ravel(order="F")]))
+    return np.asarray(poses, np.float32)
+
+
+def _hit_box(o, d):
+    lo, hi = BOX
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t1 = (lo - o) / d
+        t2 = (hi - o) / d
+    tmin = np.max(np.minimum(t1, t2), axis=-1)
+    tmax = np.min(np.maximum(t1, t2), axis=-1)
+    return np.where((tmax >= tmin) & (tmin > 0), tmin, np.inf)
+
+
+def _hit_cylinder(o, d):
+    cx, cy, r, z0, z1 = CYLINDER
+    ox, oy = o[0] - cx, o[1] - cy
+    a = d[..., 0] ** 2 + d[..., 1] ** 2
+    b = 2.0 * (ox * d[..., 0] + oy * d[..., 1])
+    c = ox * ox + oy * oy - r * r
+    disc = b * b - 4.0 * a * c
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ts = (-b - np.sqrt(np.maximum(disc, 0.0))) / (2.0 * a)
+        zs = o[2] + ts * d[..., 2]
+        side = np.where((disc >= 0) & (ts > 0) & (zs >= z0) & (zs <= z1),
+                        ts, np.inf)
+        caps = []
+        for zc in (z0, z1):
+            tc = (zc - o[2]) / d[..., 2]
+            px = o[0] + tc * d[..., 0] - cx
+            py = o[1] + tc * d[..., 1] - cy
+            caps.append(np.where((tc > 0) & (px * px + py * py <= r * r),
+                                 tc, np.inf))
+    return np.minimum(side, np.minimum(*caps))
+
+
+def render_depth(pose: np.ndarray, cam, noise: float = 3e-4,
+                 rng=None) -> np.ndarray:
+    """Depth image [cam.height, cam.width] (meters along the optical
+    axis) of the object seen from `pose`; cam has the pinhole fields of
+    CameraParam (fx, fy, cx, cy, width, height). Hits get Gaussian noise
+    of `noise` m from `rng` and the 0.1 mm quantization of the bigbird
+    depth images; misses read BACKGROUND."""
+    eye = pose[:3].astype(np.float64)
+    rot = pose[3:12].reshape(3, 3, order="F").astype(np.float64)
+    u = (np.arange(cam.width) - cam.cx) / cam.fx
+    v = (np.arange(cam.height) - cam.cy) / cam.fy
+    ray = np.stack([np.broadcast_to(u[None, :], (cam.height, cam.width)),
+                    np.broadcast_to(v[:, None], (cam.height, cam.width)),
+                    np.ones((cam.height, cam.width))], -1)
+    d = ray @ rot.T          # camera z = 1: the ray parameter is the depth
+    t = np.minimum(_hit_box(eye, d), _hit_cylinder(eye, d))
+    hit = np.isfinite(t)
+    if rng is not None and noise > 0:
+        t = t + noise * rng.standard_normal(t.shape)
+    t = np.round(t * 1e4) * 1e-4
+    return np.where(hit, t, BACKGROUND).astype(np.float32)
+
+
+def object_frames(n_frames: int, cam, seed: int = 0):
+    """Frames [(depth [H, W], pose12 [12])] of the object from the first
+    n_frames poses of ring_poses(40) (fewer frames keep the ring's
+    spacing), with depth noise from `seed`."""
+    rng = np.random.default_rng(seed)
+    poses = ring_poses(40)[:n_frames]
+    return [(render_depth(p, cam, rng=rng), p) for p in poses]
+
+
+def volume_grid(intv: float = 0.01) -> np.ndarray:
+    """The bigbird demo volume (demo_gpisMap3.m:37-38): 21 x 25 x 29 =
+    15,225 points at 0.01 m, the constants of bigbird_test_grid."""
+    xs = np.arange(VOLUME_X[0], VOLUME_X[1] + intv / 2, intv,
+                   dtype=np.float32)
+    ys = np.arange(VOLUME_Y[0], VOLUME_Y[1] + intv / 2, intv,
+                   dtype=np.float32)
+    zs = np.arange(VOLUME_Z[0], VOLUME_Z[1] + intv / 2, intv,
+                   dtype=np.float32)
+    xg, yg, zg = np.meshgrid(xs, ys, zs)
+    return np.stack([xg.reshape(-1), yg.reshape(-1), zg.reshape(-1)], -1)
+
+
+def surface_probes(offset: float = 0.01, step: float = 0.01,
+                   margin: float = 0.015):
+    """Pairs of points `offset` m outside and inside the object's surface
+    along its true normal, on a `step` grid over the faces the ring sees
+    (box sides and top, cylinder side and top), `margin` m clear of
+    every edge. Returns (outside [K, 3], inside [K, 3])."""
+    lo, hi = BOX
+    pts, nrm = [], []
+
+    def grid(a0, a1, b0, b1):
+        a = np.arange(a0 + margin, a1 - margin + 1e-9, step)
+        b = np.arange(b0 + margin, b1 - margin + 1e-9, step)
+        return np.stack(np.meshgrid(a, b), -1).reshape(-1, 2)
+
+    for ax in (0, 1):                       # box sides
+        other = 1 - ax
+        for sign, face in ((-1.0, lo[ax]), (1.0, hi[ax])):
+            g = grid(lo[other], hi[other], lo[2], hi[2])
+            p = np.zeros((len(g), 3))
+            p[:, ax] = face
+            p[:, other] = g[:, 0]
+            p[:, 2] = g[:, 1]
+            n = np.zeros(3)
+            n[ax] = sign
+            pts.append(p)
+            nrm.append(np.broadcast_to(n, p.shape))
+    g = grid(lo[0], hi[0], lo[1], hi[1])    # box top
+    pts.append(np.concatenate([g, np.full((len(g), 1), hi[2])], 1))
+    nrm.append(np.broadcast_to([0.0, 0.0, 1.0], (len(g), 3)))
+    cx, cy, r, z0, z1 = CYLINDER
+    ang = np.arange(0.0, 2.0 * np.pi, step / r)
+    zz = np.arange(z0 + margin, z1 - margin + 1e-9, step)
+    a, z = [x.reshape(-1) for x in np.meshgrid(ang, zz)]
+    n = np.stack([np.cos(a), np.sin(a), np.zeros_like(a)], -1)
+    pts.append(np.stack([cx + r * n[:, 0], cy + r * n[:, 1], z], -1))
+    nrm.append(n)
+    g = grid(cx - r, cx + r, cy - r, cy + r)  # cylinder top
+    g = g[np.hypot(g[:, 0] - cx, g[:, 1] - cy) <= r - margin]
+    pts.append(np.concatenate([g, np.full((len(g), 1), z1)], 1))
+    nrm.append(np.broadcast_to([0.0, 0.0, 1.0], (len(g), 3)))
+    p, n = np.concatenate(pts), np.concatenate(nrm)
+    return ((p + offset * n).astype(np.float32),
+            (p - offset * n).astype(np.float32))

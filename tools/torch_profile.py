@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port's 2D main path, on one GPU.
+"""Where the time goes in the PyTorch port's main paths, on one GPU.
 
-Runs chip_smoke.py's scene (28 synthetic 1081-beam frames, then test()
-on the 49,551-point demo grid) under torch.profiler and prints, for the
-update loop, the first test() (factor cache fill included) and a warm
-test(): host wall time, summed device kernel time, the device's busy
-share (kernel time / wall; overlap ignored), and the top kernels and
-host ops.
+Runs one of chip_smoke.py's scenes under torch.profiler: 2D (28 synthetic
+1081-beam frames, then test() on the 49,551-point demo grid) or, with
+--3d, 3D (40 synthetic 640x480 depth frames, then test() on the
+15,225-point demo volume). Prints, for the update loop, the first test()
+(factor cache fill included) and a warm test(): host wall time, summed
+device kernel time, the device's busy share (kernel time / wall; overlap
+ignored), and the top kernels and host ops.
 
-Usage: python3 tools/torch_profile.py    (needs CUDA)
+Usage: python3 tools/torch_profile.py [--3d]    (needs CUDA)
 """
 import os
 import subprocess
@@ -52,16 +53,22 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import torch_scenes
-    from gpismap_tpu_torch import GPisMap2D
+    from gpismap_tpu_torch import BIGBIRD_CAMS, GPisMap2D, GPisMap3D
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(f"card: {card}; torch {torch.__version__}")
-    frames = torch_scenes.floor_frames(28)
-    grid = torch_scenes.query_grid()
-    m = GPisMap2D(device="cuda")
+    if "--3d" in sys.argv[1:]:
+        frames = torch_scenes.object_frames(40, BIGBIRD_CAMS[0])
+        grid = torch_scenes.volume_grid()
+        m = GPisMap3D(device="cuda")
+        m.set_camera(1, "bigbird")        # the frames' intrinsics
+    else:
+        frames = torch_scenes.floor_frames(28)
+        grid = torch_scenes.query_grid()
+        m = GPisMap2D(device="cuda")
     m.update_batch(frames[:4])            # warm-up: builds, handles
     m.test(grid)
     m.reset()
