@@ -185,7 +185,9 @@ def ptxas_lines(name: str, log: str):
         if "Compiling entry function" in line:
             fn = next((label for key, label in (
                 ("ILi2E", "tile_eval d=2"), ("ILi3E", "tile_eval d=3"),
-                ("chol_kernel", "chol_kernel"),
+                ("chol_init_kernel", "chol_init_kernel"),
+                ("chol_panel_kernel", "chol_panel_kernel"),
+                ("chol_update_kernel", "chol_update_kernel"),
                 ("linv_kernel", "linv_kernel")) if key in line), name)
         if "registers" in line or "spill" in line:
             print(f"  ptxas ({fn}): {line.strip()}")
@@ -244,8 +246,10 @@ def check_factor_kernels(chol_ops, name, k, card):
             l_ref, eye, upper=False), 5),
         bound=factor_bound(k))
     print(f"  {name} B={b} MP={n}: chol max abs err {l_err:.3g} (relative "
-          f"{l_rel:.3g}), kernel "
-          f"{row['chol_ms']:.3f} ms, plain {row['chol_plain_ms']:.3f} ms; "
+          f"{l_rel:.3g}), kernel {row['chol_ms']:.3f} ms in "
+          f"{chol_ops.cuda_launches_per_chol(n)} CUDA launches per call, "
+          f"plain {row['chol_plain_ms']:.3f} ms, library "
+          f"{row['chol_library_ms']:.3f} ms; "
           f"linv max abs err {w_err:.3g} (relative {w_rel:.3g}), kernel "
           f"{row['linv_ms']:.3f} ms, plain {row['linv_plain_ms']:.3f} ms; "
           f"bound {row['bound'][0]:.3f} ms ({row['bound'][1]}) ({card})",

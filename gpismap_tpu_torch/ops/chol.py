@@ -13,7 +13,9 @@ n <= 1280 (the cluster systems are n = 96, 192 or 384 in 2D and 320,
 the plain version for a CPU tensor and the hand-written kernel
 (csrc/chol.cu) for a CUDA tensor; there is no fallback from one to the
 other. On a non-positive pivot the kernel clamps it to sqrt(1e-30), as
-the Pallas kernel does, where torch.linalg.cholesky raises.
+the Pallas kernel does, where torch.linalg.cholesky raises. One chol() of
+a CUDA tensor is a blocked factorization of several kernel launches on
+the current stream (cuda_launches_per_chol).
 """
 from __future__ import annotations
 
@@ -56,10 +58,20 @@ def _lib() -> ct.CDLL:
             for name in ("chol_smem", "linv_smem"):
                 getattr(lib, name).restype = ct.c_longlong
                 getattr(lib, name).argtypes = [ct.c_int]
+            lib.chol_launch_count.restype = ct.c_int
+            lib.chol_launch_count.argtypes = [ct.c_int]
             lib.chol_error_string.restype = ct.c_char_p
             lib.chol_error_string.argtypes = [ct.c_int]
             _LIB = lib
         return _LIB
+
+
+def cuda_launches_per_chol(n: int) -> int:
+    """CUDA kernel launches that one chol() of a CUDA tensor with matrices
+    of size n issues (the blocked factorization: an init kernel, then a
+    panel and a trailing-update kernel per 64-wide panel that has rows
+    below it). chol_launches counts calls of chol(), not these."""
+    return int(_lib().chol_launch_count(n))
 
 
 def chol_reference(k: torch.Tensor) -> torch.Tensor:

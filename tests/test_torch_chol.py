@@ -156,13 +156,14 @@ def _cuda_case(b, mp, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,mp", [(b, mp) for b in (1, 8, 64)
                                   for mp in (96, 192, 384)]
-                         + [(512, 384), (4, 48), (3, 100)]
+                         + [(512, 384), (4, 48), (3, 100), (2, 1000), (5, 65)]
                          + [(b, mp) for b in (1, 8, 64)
                             for mp in (320, 640, 1280)])
 def test_cuda_kernels_match_plain_versions(b, mp):
     """chol and linv on the card == their plain versions: the retrain's
     batches (B 1 to 64 at the bucket sizes 96/192/384 in 2D and
-    320/640/1280 in 3D), the fill (B = 512 at 384) and ragged sizes;
+    320/640/1280 in 3D), the fill (B = 512 at 384) and ragged sizes (not
+    multiples of chol's 64-wide panel);
     identity-masked rows come out exact,
     strict upper triangles are exact zeros, and each call counts one
     launch."""
@@ -197,3 +198,90 @@ def test_cuda_kernels_match_plain_versions(b, mp):
         chol_ops.chol(k.mT)
     with pytest.raises(ValueError, match="n=1281"):
         chol_ops.linv(torch.zeros((1, 1281, 1281), device="cuda"))
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA: the chol kernels have no "
+                    "CPU mode")
+
+
+# chol's panel width (csrc/chol.cu, NB): rows NB - 1 and NB sit on either
+# side of the first panel boundary
+NB = 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,mp", [(3, 130), (2, 1280)])
+def test_cuda_chol_masked_rows_on_panel_boundaries(b, mp):
+    """Identity-masked rows and columns on either side of each panel
+    boundary (j = NB - 1 and NB, and the last panel's first row) come out
+    exactly as identity rows and columns of L."""
+    _need_cuda()
+    k, _ = _cuda_case(b, mp, seed=7 * mp)
+    idx = [NB - 1, NB, (mp - 1) // NB * NB]
+    for i in range(b):
+        for j in idx:
+            k[i, j, :] = 0.0
+            k[i, :, j] = 0.0
+            k[i, j, j] = 1.0
+    l = chol_ops.chol(k)
+    l_ref = chol_ops.chol_reference(k)
+    torch.cuda.synchronize()
+    assert float((l - l_ref).abs().max() / max(1.0, float(l_ref.abs().max()))
+                 ) <= L_TOL
+    assert _upper_is_zero(l)
+    eye = torch.eye(mp, device="cuda")
+    for i in range(b):
+        for j in idx:
+            assert torch.equal(l[i, j], eye[j])
+            assert torch.equal(l[i, :, j], eye[j])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,mp", [(2, 200), (1, 1280)])
+def test_cuda_chol_clamps_pivots(b, mp):
+    """The pivot clamp of pallas_chol.py:72: K = 0 gives exactly
+    sqrt(float32(1e-30)) I; a rank-deficient positive semi-definite batch
+    (rows and columns of zeros, on panel boundaries among them) gives a
+    finite L whose zero rows have the clamped diagonal and which equals,
+    bit for bit, the factor of the same batch with those rows masked by
+    the identity everywhere else."""
+    _need_cuda()
+    clamp = torch.sqrt(torch.tensor(1e-30, dtype=torch.float32)).item()
+    l0 = chol_ops.chol(torch.zeros((b, mp, mp), device="cuda"))
+    torch.cuda.synchronize()
+    assert torch.equal(l0, clamp * torch.eye(mp, device="cuda").expand(
+        b, mp, mp))
+
+    k, _ = _cuda_case(b, mp, seed=11 * mp)
+    zero = [5, NB - 1, NB, mp - 1]
+    k_zero, k_masked = k.clone(), k.clone()
+    for j in zero:
+        k_zero[:, j, :] = 0.0
+        k_zero[:, :, j] = 0.0
+        k_masked[:, j, :] = 0.0
+        k_masked[:, :, j] = 0.0
+        k_masked[:, j, j] = 1.0
+    l = chol_ops.chol(k_zero)
+    l_masked = chol_ops.chol(k_masked)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(l).all())
+    for j in zero:
+        assert bool((l[:, j, j] == clamp).all())
+        l[:, j, j] = 1.0
+    assert torch.equal(l, l_masked)
+
+
+@pytest.mark.cuda
+def test_cuda_chol_is_batch_independent():
+    """Matrix i of a B = 64, n = 1280 batch factored alone is bitwise
+    equal to its factor in the batch: no block's arithmetic depends on
+    the other matrices."""
+    _need_cuda()
+    k, _ = _cuda_case(64, 1280, seed=12)
+    l = chol_ops.chol(k)
+    for i in (0, 1, 31, 63):
+        alone = chol_ops.chol(k[i:i + 1].contiguous())
+        torch.cuda.synchronize()
+        assert torch.equal(alone[0], l[i]), i
