@@ -188,7 +188,10 @@ def ptxas_lines(name: str, log: str):
                 ("chol_init_kernel", "chol_init_kernel"),
                 ("chol_panel_kernel", "chol_panel_kernel"),
                 ("chol_update_kernel", "chol_update_kernel"),
-                ("linv_kernel", "linv_kernel")) if key in line), name)
+                ("linv_diag_kernel", "linv_diag_kernel"),
+                ("linv_merge_ca_kernel", "linv_merge_ca_kernel"),
+                ("linv_merge_x_kernel", "linv_merge_x_kernel"))
+                if key in line), name)
         if "registers" in line or "spill" in line:
             print(f"  ptxas ({fn}): {line.strip()}")
 
@@ -251,7 +254,9 @@ def check_factor_kernels(chol_ops, name, k, card):
           f"plain {row['chol_plain_ms']:.3f} ms, library "
           f"{row['chol_library_ms']:.3f} ms; "
           f"linv max abs err {w_err:.3g} (relative {w_rel:.3g}), kernel "
-          f"{row['linv_ms']:.3f} ms, plain {row['linv_plain_ms']:.3f} ms; "
+          f"{row['linv_ms']:.3f} ms in {chol_ops.cuda_launches_per_linv(n)} "
+          f"CUDA launches per call, plain {row['linv_plain_ms']:.3f} ms, "
+          f"library {row['linv_library_ms']:.3f} ms; "
           f"bound {row['bound'][0]:.3f} ms ({row['bound'][1]}) ({card})",
           flush=True)
     if l_rel > CHOL_TOL:

@@ -128,8 +128,13 @@ class _MapperBase:
     def _retrain_store(self) -> None:
         """Retrain the touched cluster GPs (GPisMap.cpp:596-663) with
         support-count size buckets: each bucket fits at its own padding,
-        which masked identity rows make exactly equal to a full-padding
-        fit. The support is gathered on the device from the node mirror,
+        which masked identity rows make equal to a full-padding fit up to
+        f32 rounding (on the card about 1e-6 relative, bounded by
+        tests/test_torch_chol.py::test_cuda_bucketed_fit_matches_full_padding:
+        the [f; gx; gy] layout puts the padded rows inside the matrix, so
+        the kernels' 64-wide blocks group the sums differently at the
+        bucket's size and at full padding). The support is gathered on
+        the device from the node mirror,
         and the factor cache is refreshed from the fits' own Cholesky
         factors. This is the JAX package's fused frame epilogue
         (frame_finish_full), run as its separate stages in the same order."""

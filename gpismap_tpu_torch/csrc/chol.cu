@@ -7,11 +7,11 @@
 //                   written as exact zeros; a non-positive pivot is clamped
 //                   to sqrt(1e-30) as at pallas_chol.py:72
 //                   (torch.linalg.cholesky raises there instead);
-//   linv_kernel  <- linv_pallas (_linv_kernel, _inv_lower_base): W = L^-1
-//                   of lower-triangular L [B, n, n] by blocked forward
-//                   substitution; strict upper triangle exact zeros (the
-//                   tile kernel, csrc/tile_eval.cu, skips it and relies on
-//                   them).
+//   linv_* kernels <- linv_pallas (_linv_kernel, _inv_lower_base): W = L^-1
+//                   of lower-triangular L [B, n, n] by recursive merging of
+//                   inverted diagonal blocks; strict upper triangle exact
+//                   zeros (the tile kernel, csrc/tile_eval.cu, skips it and
+//                   relies on them).
 // n <= 1280 (2D: 96/192/384; 3D: 320/640/1280), fp32 FMAs only: no TF32,
 // no tensor cores and no atomics (the map query's variance is a
 // cancellation, const - ||L^-1 k*||^2), so a matrix's factor does not
@@ -62,32 +62,54 @@
 // 64-wide row solve still fits in registers. Identity-masked rows stay
 // exact: their products are zeros, and fmaf(-0, x, a) == a.
 //
-// linv: also n^3/6 multiply-adds per matrix. Each [n, n] matrix lives in
-// device memory and the L2 (one [1280, 1280] matrix is 6.55 MB); a block
-// keeps its W panel in shared memory, 177 KB at n = 1280, under the
-// 227 KB a block may use; the launcher raises the limit to it.
-// linv design: column panel k of W depends only on L and on W[., k]
-// itself (pallas_chol.py:141-153), so one block per (matrix, 32-column
-// panel): B * n/32 blocks, which fills the card even at B = 8. The block
-// walks down its panel in 32-row blocks: S = L[I, k0:i0] W[k0:i0, k] from
-// the panel rows already done (kept in shared memory), then a forward
-// substitution with the diagonal block L[I, I] (one warp, lane = column).
+// What bounds linv. Also n^3/6 multiply-adds per matrix: 44.7 GFLOP for
+// B = 64 at n = 1280 (0.668 ms at 67 TFLOP/s) and 1.2 GFLOP at n = 384
+// (0.0225 ms, bound by the 75.5 MB of L in and W out). Of the work at
+// n = 1280, 48 % is the last merge level (s = 1024: |A| = 1024,
+// |D| = 256) and 38 % the one before (s = 512); each has 4,096 output
+// tiles of 64x64 per launch at B = 64, so the card is full and the FMA
+// rate bounds them. At n = 384 the chain of 7 launches bounds it.
+//
+// linv design: the blocked column order of the Pallas kernel
+// (pallas_chol.py:128-153) suits one sequential core, not 132 SMs, so
+// the inverse is built by merging instead, from a host loop in C on the
+// caller's stream (linv_launch), 1 + 2 ceil(log2(ceil(n / NB))) launches
+// (11 at n = 1280, 7 at n = 384):
+//   - linv_diag_kernel, grid (ceil(n / NB), B): inverts one NB x NB
+//     diagonal block L_kk in shared memory (a forward substitution, the
+//     columns in parallel, four threads per column splitting each row's
+//     sum, the rows in order) and writes W_kk and the exact zeros of W's
+//     strict upper triangle in its block row. A ragged last block is
+//     padded with the identity.
+//   - merge levels s = NB, 2 NB, ... while s < n: the inverted diagonal
+//     blocks of size s pair up, A = [2 p s, (2 p + 1) s) and
+//     D = [(2 p + 1) s, min((2 p + 2) s, n)), and the merged inverse's
+//     off-diagonal block is X = W[D, A] = -D^-1 (C A^-1), C = L[D, A].
+//     linv_merge_ca_kernel computes T = C A^-1 into scratch (at most
+//     ceil(n^2 / 4) floats per matrix, since the sum of |D| |A| over a
+//     level's pairs is at most n^2 / 4), then linv_merge_x_kernel computes
+//     X = -D^-1 T into W. Both are 64x64 output tiles over all pairs of
+//     the level and the batch, with the 4x4 register tile and transposed
+//     shared operands of chol_update_kernel, the next k-tile loaded into
+//     registers while the current one is multiplied, and both skip the
+//     k-tiles in which the triangular factor (A^-1 or D^-1) is zero.
+// Every element of W is written by one block of one launch, no launch
+// reads what it writes, and nothing depends on the batch. Identity-masked
+// rows stay exact: their products are zeros.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int PW = 32;               // linv: panel width and row-block height
-constexpr int LD = PW + 1;           // padded shared row: conflict-free column reads
 constexpr int NTHREADS = 256;
 constexpr int NWARPS = NTHREADS / 32;
-constexpr int RPW = PW / NWARPS;     // rows per warp in a 32x32 tile (4)
 constexpr float PIVOT_FLOOR = 1e-30f;  // pallas_chol.py:72
 
-constexpr int NB = 64;               // chol: panel width = update tile edge
+constexpr int NB = 64;               // panel width = product tile edge
 constexpr int NBL = NB + 1;          // padded row of a diagonal block
 constexpr int TLD = NB + 4;          // row of a transposed panel tile (float4)
 constexpr int RB = NTHREADS;         // panel rows per block, one per thread
-static_assert(NTHREADS == 4 * NB, "factor_diag: four threads per row");
+static_assert(NTHREADS == 4 * NB,
+              "four threads per row (factor_diag) or column (linv_diag)");
 static_assert(NTHREADS == 16 * 16 && NB == 4 * 16, "4x4 tile per thread");
 
 __host__ inline size_t diag_smem_bytes() {
@@ -98,8 +120,9 @@ __host__ inline size_t update_smem_bytes() {
   return sizeof(float) * 2 * NB * TLD;               // two panel tiles
 }
 
-__host__ inline size_t linv_smem_bytes(int n) {
-  return sizeof(float) * ((size_t)n + 2 * PW) * LD;  // W panel + 2 blocks
+// floats of merge scratch per matrix: T of every pair of one level
+__host__ __device__ inline size_t linv_scratch_floats(int n) {
+  return ((size_t)n * n + 3) / 4;
 }
 
 // dg [NB][NBL] <- the w x w diagonal block of M at k0 (lower triangle),
@@ -262,96 +285,210 @@ chol_update_kernel(float* __restrict__ l, int n, int k0) {
   store_diag(L, n, r0, hi, dg);
 }
 
+// W's w x w diagonal block at k0 <- L_kk^-1 (exact zeros above the
+// diagonal), and the rest of its block row right of it <- exact zeros.
 __global__ void __launch_bounds__(NTHREADS)
-linv_kernel(const float* __restrict__ l, float* __restrict__ w, int n) {
-  const size_t off = (size_t)blockIdx.x * n * n;
-  const float* L = l + off;
+linv_diag_kernel(const float* __restrict__ l, float* __restrict__ w, int n) {
+  const size_t off = (size_t)blockIdx.y * n * n;
   float* W = w + off;
-  const int k0 = blockIdx.y * PW;      // this block's column panel
-  const int wk = min(PW, n - k0);
-  extern __shared__ float smem[];
-  float* wp = smem;                    // [n - k0][LD] W[k0:, k0:k0+PW]
-  float* lc = wp + (size_t)n * LD;     // [PW][LD] block of L
-  float* t = lc + PW * LD;             // [PW][LD] right-hand side / solution
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  // rows above the panel: exact zeros
-  for (int i = warp; i < k0; i += NWARPS)
-    if (lane < wk) W[(size_t)i * n + k0 + lane] = 0.f;
-
-  for (int i0 = k0; i0 < n; i0 += PW) {
-    const int h = min(PW, n - i0);     // rows in this row block
-    // S = L[i0:i0+h, k0:i0] @ W[k0:i0, panel]; column lane, rows
-    // warp + NWARPS q
-    float acc[RPW];
+  const int k0 = blockIdx.x * NB, wk = min(NB, n - k0);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = k0 + warp; i < k0 + wk; i += NWARPS)
+    for (int j = k0 + wk + lane; j < n; j += 32) W[(size_t)i * n + j] = 0.f;
+  extern __shared__ __align__(16) float dsm[];
+  load_diag(l + off, n, k0, wk, dsm);
+  __syncthreads();
+  // L_kk X = I by columns: thread (c, p) solves column c and holds its rows
+  // 4 i + p in x[i]; row r's sum over the rows before it is split over
+  // the column's four threads (adjacent lanes) and summed by shuffles.
+  // Rows not yet solved are still 0 in x, and L_kk is 0 above the
+  // diagonal, so each thread may run its sum over every row it holds
+  // below 4 ceil(r / 4).
+  const int c = threadIdx.x >> 2, p = threadIdx.x & 3;
+  float x[NB / 4];
 #pragma unroll
-    for (int rr = 0; rr < RPW; ++rr) acc[rr] = 0.f;
-    for (int j0 = k0; j0 < i0; j0 += PW) {
-      __syncthreads();                 // lc free
-      for (int p = tid; p < PW * PW; p += NTHREADS) {
-        const int r = p / PW, c = p % PW;
-        lc[r * LD + c] = r < h ? L[(size_t)(i0 + r) * n + j0 + c] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int jj = 0; jj < PW; ++jj) {
-        const float wv = wp[(j0 - k0 + jj) * LD + lane];
+  for (int i = 0; i < NB / 4; ++i) x[i] = 0.f;
 #pragma unroll
-        for (int rr = 0; rr < RPW; ++rr)
-          acc[rr] = fmaf(lc[(warp + NWARPS * rr) * LD + jj], wv, acc[rr]);
-      }
-    }
-    __syncthreads();                   // lc and t free
-    // T = E - S, E = I on the panel's own diagonal block
+  for (int r = 0; r < NB; ++r) {
+    const float* row = dsm + r * NBL;
+    float sum = 0.f;
 #pragma unroll
-    for (int rr = 0; rr < RPW; ++rr) {
-      const int r = warp + NWARPS * rr;
-      t[r * LD + lane] = (i0 == k0 && r == lane ? 1.f : 0.f) - acc[rr];
-    }
-    for (int p = tid; p < PW * PW; p += NTHREADS) {
-      const int r = p / PW, c = p % PW;
-      float v = r == c ? 1.f : 0.f;
-      if (r < h && c <= r) v = L[(size_t)(i0 + r) * n + i0 + c];
-      lc[r * LD + c] = v;
-    }
-    __syncthreads();
-    // X = L[I, I]^-1 T: one warp, lane = column
-    if (warp == 0) {
-      for (int r = 0; r < PW; ++r) {
-        float s = t[r * LD + lane];
-        for (int q = 0; q < r; ++q) s = fmaf(-lc[r * LD + q], t[q * LD + lane], s);
-        t[r * LD + lane] = s / lc[r * LD + r];
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int rr = 0; rr < RPW; ++rr) {
-      const int r = warp + NWARPS * rr;
-      if (r < h) {
-        // strict upper triangle of the diagonal block: exact zeros
-        const float v = i0 == k0 && r < lane ? 0.f : t[r * LD + lane];
-        wp[(i0 - k0 + r) * LD + lane] = v;
-        if (lane < wk) W[(size_t)(i0 + r) * n + k0 + lane] = v;
-      }
-    }
+    for (int i = 0; i < (r + 3) / 4; ++i)
+      sum = fmaf(row[4 * i + p], x[i], sum);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float v = ((r == c ? 1.f : 0.f) - sum) / row[r];
+    if ((r & 3) == p) x[r >> 2] = v;
   }
+  if (c >= wk) return;
+#pragma unroll
+  for (int i = 0; i < NB / 4; ++i) {
+    const int r = 4 * i + p;
+    if (r < wk) W[(size_t)(k0 + r) * n + k0 + c] = r >= c ? x[i] : 0.f;
+  }
+}
+
+// acc[u][v] += sum over q < NB of sa[q][4 ty + u] sb[q][4 tx + v] for
+// thread (ty, tx) = (tid / 16, tid % 16): rows 4 ty + u and columns
+// 4 tx + v of a 64x64 tile; sa and sb are [NB][TLD] in shared memory.
+// chol_update_kernel keeps its own copy of this loop: calling this one
+// there made ptxas spill 8 bytes and chol 3 % slower at n = 1280 on an
+// H100.
+__device__ __forceinline__ void tile_fma(const float* sa, const float* sb,
+                                         float (&acc)[4][4]) {
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+#pragma unroll 8
+  for (int q = 0; q < NB; ++q) {
+    const float4 a4 = *reinterpret_cast<const float4*>(sa + q * TLD + 4 * ty);
+    const float4 b4 = *reinterpret_cast<const float4*>(sb + q * TLD + 4 * tx);
+    const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+    const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(av[u], bv[v], acc[u][v]);
+  }
+}
+
+// One output tile of a merge product: acc[u][v] = sum over k in
+// [k_lo, k_hi) of P[4 ty + u][k] Q[k][4 tx + v], k_lo and k_hi multiples
+// of NB. Rows of P at or past hp and k at or past hk read as zeros (they
+// may lie outside the matrix). sp and sq hold one k-tile of each operand,
+// [NB][TLD]: sp[q][a] = P[a][k0 + q] (transposed), sq[q][b] = Q[k0 + q][b].
+// Each thread loads its PER elements of the next k-tile into registers
+// while the block multiplies the current one.
+__device__ void merge_tile(const float* __restrict__ P, int ldp, int hp,
+                           const float* __restrict__ Q, int ldq, int k_lo,
+                           int k_hi, int hk, float* sp, float* sq,
+                           float (&acc)[4][4]) {
+  constexpr int PER = NB * NB / NTHREADS, RSTEP = NTHREADS / NB;
+  // element i of this thread: row row0 + RSTEP i, column q of a k-tile
+  const int q = threadIdx.x % NB, row0 = threadIdx.x / NB;
+  float pr[PER], qr[PER];
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int a = row0 + RSTEP * i;
+      pr[i] = a < hp && k0 + q < hk ? P[(size_t)a * ldp + k0 + q] : 0.f;
+      qr[i] = k0 + a < hk ? Q[(size_t)(k0 + a) * ldq + q] : 0.f;
+    }
+  };
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[u][v] = 0.f;
+  load(k_lo);
+  for (int k0 = k_lo; k0 < k_hi; k0 += NB) {
+    __syncthreads();                   // the previous k-tile is read
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int a = row0 + RSTEP * i;
+      sp[q * TLD + a] = pr[i];
+      sq[a * TLD + q] = qr[i];
+    }
+    __syncthreads();
+    if (k0 + NB < k_hi) load(k0 + NB);
+    tile_fma(sp, sq, acc);
+  }
+}
+
+// Pair p and output tile (rows i0, columns j0 of the |D| x s block) of a
+// merge level s from blockIdx.x: the pairs' tiles in order,
+// ceil(|D| / NB) x s / NB tiles each (only the last pair's D can be
+// shorter than s).
+struct MergeTile {
+  int p, a0, d0, hd, i0, j0;
+};
+
+__device__ MergeTile merge_tile_of_block(int n, int s) {
+  const int ta = s / NB, t = blockIdx.x;
+  MergeTile m;
+  m.p = t / (ta * ta);
+  const int rem = t % (ta * ta);
+  m.a0 = 2 * m.p * s;
+  m.d0 = m.a0 + s;
+  m.hd = min(s, n - m.d0);
+  m.i0 = rem / ta * NB;
+  m.j0 = rem % ta * NB;
+  return m;
+}
+
+// T = C A^-1 for every pair of level s: T [|D|][s] at scratch offset
+// p s^2 of the matrix's linv_scratch_floats(n). A^-1 is lower triangular,
+// so output column tile tj needs only the k-tiles from tj on.
+__global__ void __launch_bounds__(NTHREADS)
+linv_merge_ca_kernel(const float* __restrict__ l, const float* __restrict__ w,
+                     float* __restrict__ scratch, int n, int s) {
+  const size_t off = (size_t)blockIdx.y * n * n;
+  const MergeTile m = merge_tile_of_block(n, s);
+  const int hi = min(NB, m.hd - m.i0);
+  extern __shared__ __align__(16) float dsm[];
+  float acc[4][4];
+  merge_tile(l + off + (size_t)(m.d0 + m.i0) * n + m.a0, n, hi,
+             w + off + (size_t)m.a0 * n + m.a0 + m.j0, n, m.j0, s, s, dsm,
+             dsm + NB * TLD, acc);
+  float* T = scratch + (size_t)blockIdx.y * linv_scratch_floats(n)
+             + (size_t)m.p * s * s + (size_t)m.i0 * s + m.j0;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+    if (4 * ty + u < hi)
+#pragma unroll
+      for (int v = 0; v < 4; ++v)
+        T[(size_t)(4 * ty + u) * s + 4 * tx + v] = acc[u][v];
+}
+
+// W[D, A] = X = -D^-1 T for every pair of level s. D^-1 is lower
+// triangular, so output row tile ti needs only the k-tiles up to ti.
+__global__ void __launch_bounds__(NTHREADS)
+linv_merge_x_kernel(const float* __restrict__ scratch, float* __restrict__ w,
+                    int n, int s) {
+  const size_t off = (size_t)blockIdx.y * n * n;
+  const MergeTile m = merge_tile_of_block(n, s);
+  const int hi = min(NB, m.hd - m.i0);
+  const float* T = scratch + (size_t)blockIdx.y * linv_scratch_floats(n)
+                   + (size_t)m.p * s * s;
+  extern __shared__ __align__(16) float dsm[];
+  float acc[4][4];
+  merge_tile(w + off + (size_t)(m.d0 + m.i0) * n + m.d0, n, hi, T + m.j0, s,
+             0, m.i0 + NB, m.hd, dsm, dsm + NB * TLD, acc);
+  float* X = w + off + (size_t)(m.d0 + m.i0) * n + m.a0 + m.j0;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+    if (4 * ty + u < hi)
+#pragma unroll
+      for (int v = 0; v < 4; ++v)
+        X[(size_t)(4 * ty + u) * n + 4 * tx + v] = -acc[u][v];
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one block needs at size n (bytes): for chol the
-// largest of its kernels' (the trailing update's), whatever n.
+// Dynamic shared memory one block needs at size n (bytes): the largest
+// of chol's kernels' or of linv's (the product tiles'), whatever n.
 long long chol_smem(int n) {
   (void)n;
   return (long long)(diag_smem_bytes() > update_smem_bytes()
                          ? diag_smem_bytes() : update_smem_bytes());
 }
-long long linv_smem(int n) { return (long long)linv_smem_bytes(n); }
+long long linv_smem(int n) { return chol_smem(n); }
+
+// Floats of scratch per matrix that linv_launch needs at size n.
+long long linv_scratch(int n) { return (long long)linv_scratch_floats(n); }
 
 // CUDA kernel launches of one chol_launch at size n.
 int chol_launch_count(int n) { return n <= 0 ? 0 : 1 + 2 * ((n - 1) / NB); }
+
+// CUDA kernel launches of one linv_launch at size n: the diagonal
+// inverses, then two per merge level.
+int linv_launch_count(int n) {
+  if (n <= 0) return 0;
+  int count = 1;
+  for (int s = NB; s < n; s *= 2) count += 2;
+  return count;
+}
 
 // Each launches on `stream` and returns cudaGetLastError() (0 on success).
 // chol: the whole blocked factorization, chol_launch_count(n) kernels in
@@ -375,14 +512,28 @@ int chol_launch(const float* k, float* l, int b, int n, void* stream) {
   return (int)err;
 }
 
-int linv_launch(const float* l, float* w, int b, int n, void* stream) {
-  const size_t smem = linv_smem_bytes(n);
-  cudaError_t err = cudaFuncSetAttribute(
-      linv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(b, (n + PW - 1) / PW);
-  linv_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(l, w, n);
-  return (int)cudaGetLastError();
+// linv: the diagonal inverses and the merge levels, linv_launch_count(n)
+// kernels in stream order; scratch holds b * linv_scratch(n) floats. It
+// stops at the first launch that fails.
+int linv_launch(const float* l, float* w, float* scratch, int b, int n,
+                void* stream) {
+  if (b > 65535) return (int)cudaErrorInvalidValue;  // grid.y holds the batch
+  const cudaStream_t st = (cudaStream_t)stream;
+  const size_t sd = diag_smem_bytes(), su = update_smem_bytes();
+  linv_diag_kernel<<<dim3((n + NB - 1) / NB, b), NTHREADS, sd, st>>>(l, w, n);
+  cudaError_t err = cudaGetLastError();
+  for (int s = NB; err == cudaSuccess && s < n; s *= 2) {
+    // pairs with a non-empty D; only the last one's D can be short
+    const int ta = s / NB, pairs = (n + s - 1) / s / 2;
+    const int hd_last = min(s, n - (2 * pairs - 1) * s);
+    const dim3 grid(((pairs - 1) * ta + (hd_last + NB - 1) / NB) * ta, b);
+    linv_merge_ca_kernel<<<grid, NTHREADS, su, st>>>(l, w, scratch, n, s);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) break;
+    linv_merge_x_kernel<<<grid, NTHREADS, su, st>>>(scratch, w, n, s);
+    err = cudaGetLastError();
+  }
+  return (int)err;
 }
 
 const char* chol_error_string(int err) {

@@ -213,9 +213,14 @@ def factorize_slots(store: ClusterStore, slots: torch.Tensor, scale,
 
 def _embed_linv(linv_s: torch.Tensor, mp: int, d: int) -> torch.Tensor:
     """Scatter a small-system L^-1 [B, (1+d)mb, (1+d)mb] into the
-    identity-padded full layout [B, mp, mp]. Exact: the masked identity
-    rows of the padding leave the Cholesky recursion's real rows as they
-    are, so the full L^-1 is the small one at the real rows' positions."""
+    identity-padded full layout [B, mp, mp]. The masked identity rows of
+    the padding leave the Cholesky recursion's real rows as they are, so
+    the full L^-1 is the small one at the real rows' positions, up to f32
+    rounding: the padded rows sit inside each of the 1+d blocks, so the
+    CUDA kernels' 64-wide blocks group the sums differently at the two
+    sizes (about 1e-6 relative on the card; a test bounds it,
+    tests/test_torch_chol.py::test_cuda_bucketed_fit_matches_full_padding).
+    """
     mp_s = linv_s.shape[-1]
     if mp_s == mp:
         return linv_s

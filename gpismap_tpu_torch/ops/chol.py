@@ -15,7 +15,9 @@ the plain version for a CPU tensor and the hand-written kernel
 other. On a non-positive pivot the kernel clamps it to sqrt(1e-30), as
 the Pallas kernel does, where torch.linalg.cholesky raises. One chol() of
 a CUDA tensor is a blocked factorization of several kernel launches on
-the current stream (cuda_launches_per_chol).
+the current stream (cuda_launches_per_chol), and one linv() the inverses
+of the 64-wide diagonal blocks merged level by level
+(cuda_launches_per_linv).
 """
 from __future__ import annotations
 
@@ -50,16 +52,19 @@ def _lib() -> ct.CDLL:
         if _LIB is None:
             path, _ = _native.build(_SRC, "libchol.so", _native.NVCC)
             lib = ct.CDLL(path)
-            for name in ("chol_launch", "linv_launch"):
-                fn = getattr(lib, name)
-                fn.restype = ct.c_int
-                fn.argtypes = [ct.c_void_p, ct.c_void_p, ct.c_int, ct.c_int,
-                               ct.c_void_p]
-            for name in ("chol_smem", "linv_smem"):
+            lib.chol_launch.restype = lib.linv_launch.restype = ct.c_int
+            lib.chol_launch.argtypes = [ct.c_void_p, ct.c_void_p, ct.c_int,
+                                        ct.c_int, ct.c_void_p]
+            # l, w, scratch, b, n, stream
+            lib.linv_launch.argtypes = [ct.c_void_p, ct.c_void_p,
+                                        ct.c_void_p, ct.c_int, ct.c_int,
+                                        ct.c_void_p]
+            for name in ("chol_smem", "linv_smem", "linv_scratch"):
                 getattr(lib, name).restype = ct.c_longlong
                 getattr(lib, name).argtypes = [ct.c_int]
-            lib.chol_launch_count.restype = ct.c_int
-            lib.chol_launch_count.argtypes = [ct.c_int]
+            for name in ("chol_launch_count", "linv_launch_count"):
+                getattr(lib, name).restype = ct.c_int
+                getattr(lib, name).argtypes = [ct.c_int]
             lib.chol_error_string.restype = ct.c_char_p
             lib.chol_error_string.argtypes = [ct.c_int]
             _LIB = lib
@@ -72,6 +77,14 @@ def cuda_launches_per_chol(n: int) -> int:
     panel and a trailing-update kernel per 64-wide panel that has rows
     below it). chol_launches counts calls of chol(), not these."""
     return int(_lib().chol_launch_count(n))
+
+
+def cuda_launches_per_linv(n: int) -> int:
+    """CUDA kernel launches that one linv() of a CUDA tensor with matrices
+    of size n issues (the 64-wide diagonal inverses, then two products per
+    merge level: 1 + 2 ceil(log2(ceil(n / 64)))). linv_launches counts
+    calls of linv(), not these."""
+    return int(_lib().linv_launch_count(n))
 
 
 def chol_reference(k: torch.Tensor) -> torch.Tensor:
@@ -103,10 +116,16 @@ def _launch(name: str, x: torch.Tensor):
     if b == 0 or n == 0:
         return out, False
     lib = _lib()
+    ptrs = [x.data_ptr(), out.data_ptr()]
+    if name == "linv":
+        # the merge products' T = C A^-1; freed into the caching allocator
+        # on this stream, so its next use waits for these kernels
+        scratch = torch.empty(b * int(lib.linv_scratch(n)),
+                              dtype=torch.float32, device=x.device)
+        ptrs.append(scratch.data_ptr())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = getattr(lib, f"{name}_launch")(x.data_ptr(), out.data_ptr(), b,
-                                            n, stream)
+        rc = getattr(lib, f"{name}_launch")(*ptrs, b, n, stream)
     if rc != 0:
         raise RuntimeError(
             f"{name} kernel launch failed: CUDA error {rc} "
