@@ -141,22 +141,64 @@ def bound(flops: float, nbytes: float):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def tile_bound(args, kwargs):
-    """bound() of one tile evaluation on these inputs: per active tile of
-    T queries, the variance product over L^-1's lower triangle and the
-    mean, MP(MP+1)/2 + MP multiply-adds per K* column, T(1+D) columns;
-    bytes: the lower triangle of L^-1 and the cell inputs of each cell
-    the active tiles use, their queries, the tile list and the outputs."""
-    tile_seg, linv, xt, _, _, _, qt = args
+def unmasked_rows(args, kwargs) -> torch.Tensor:
+    """[S] support rows of each cell that the masks keep: the f rows of
+    nodes with valid = 1 and the D gradient rows of nodes with gradflag *
+    valid = 1 (ops/kernels.py). The others are zero rows of K*, and the
+    identity-masked system makes their rows and columns of L^-1 the
+    identity's, so no product needs them."""
+    gradflag, valid = args[4] > 0.5, args[5] > 0.5
+    return (valid.sum(-1) + kwargs["d"] * (gradflag & valid).sum(-1)).double()
+
+
+def tile_work(args, kwargs):
+    """(fp32 operations, bytes) that one tile evaluation needs on these
+    inputs: per active tile, with n its cell's unmasked_rows, n(n+1)/2 + n
+    multiply-adds per K* column (the variance product over those rows of
+    L^-1's lower triangle, and the mean), T(1+D) columns; bytes: that part
+    of L^-1 and of alpha and the other inputs of each cell the active
+    tiles use, their queries, the tile list and the outputs."""
+    tile_seg, _, xt, _, _, _, qt = args
     d = kwargs["d"]
-    mp, m, t = linv.shape[-1], xt.shape[-1], qt.shape[-1]
-    act = tile_seg >= 0
-    n_act = int(act.sum())
-    n_cells = int(torch.unique(tile_seg[act]).numel())
-    flops = 2.0 * n_act * t * (1 + d) * (mp * (mp + 1) / 2 + mp)
-    nbytes = 4.0 * (n_cells * (mp * (mp + 1) / 2 + d * m + mp + 2 * m)
-                    + tile_seg.numel() + n_act * t * (d + 2 + 2 * d))
-    return bound(flops, nbytes)
+    m, t = xt.shape[-1], qt.shape[-1]
+    segs = tile_seg[tile_seg >= 0].long()
+    cells = torch.unique(segs)
+    n = unmasked_rows(args, kwargs)
+    per_col = n * (n + 1) / 2 + n
+    flops = 2.0 * t * (1 + d) * float(per_col[segs].sum())
+    nbytes = 4.0 * (float(per_col[cells].sum()) + cells.numel() * (d + 2) * m
+                    + tile_seg.numel() + segs.numel() * t * (d + 2 + 2 * d))
+    return flops, nbytes
+
+
+def row_shares(args, kwargs) -> str:
+    """The mean share of valid support nodes (valid summed over M) and of
+    unmasked K* rows (unmasked_rows over MP) of the cells the active tiles
+    use, per active tile and per cell."""
+    segs = args[0][args[0] >= 0].long()
+    cells = torch.unique(segs)
+    m, mp = args[5].shape[-1], args[1].shape[-1]
+    valid = (args[5] > 0.5).sum(-1).double() / m
+    rows = unmasked_rows(args, kwargs) / mp
+    return (f"valid support nodes: mean share {float(valid[segs].mean()):.4f} "
+            f"over the {segs.numel()} active tiles, "
+            f"{float(valid[cells].mean()):.4f} over their {cells.numel()} "
+            f"cells (M={m}); unmasked K* rows: {float(rows[segs].mean()):.4f} "
+            f"per tile, {float(rows[cells].mean()):.4f} per cell (MP={mp})")
+
+
+def tile_bound(args, kwargs):
+    """bound() of one tile evaluation on these inputs (tile_work)."""
+    return bound(*tile_work(args, kwargs))
+
+
+def tile_rate(tile_ops, args, kwargs, ms):
+    """The kernel's rate on tile_work's operation count, and the dynamic
+    shared memory of one of its blocks at this M."""
+    d, m = kwargs["d"], args[2].shape[-1]
+    smem = tile_ops._lib().tile_eval_smem_bytes(d, m)
+    return (f"{tile_work(args, kwargs)[0] / ms / 1e9:.2f} TFLOP/s, "
+            f"{smem} B of dynamic shared memory per block at M={m}")
 
 
 def factor_bound(x: torch.Tensor):
@@ -178,8 +220,10 @@ def kernel_entry(name, replaces, launches, err, ms, plain_ms, bnd,
 
 
 def ptxas_lines(name: str, log: str):
-    """The register / spill lines of nvcc's -Xptxas -v report, each
-    labelled with its kernel (and the tile kernel's dimension)."""
+    """The register / spill / shared-memory lines of nvcc's -Xptxas -v
+    report, each labelled with its kernel (and the tile kernel's
+    dimension). Dynamic shared memory is not in it: phases 3 and 6 print
+    the tile kernel's."""
     fn = name
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -192,7 +236,7 @@ def ptxas_lines(name: str, log: str):
                 ("linv_merge_ca_kernel", "linv_merge_ca_kernel"),
                 ("linv_merge_x_kernel", "linv_merge_x_kernel"))
                 if key in line), name)
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "smem" in line:
             print(f"  ptxas ({fn}): {line.strip()}")
 
 
@@ -335,11 +379,15 @@ def run_3d(card, torch_scenes, chol_ops, tile_ops, cluster, convert):
     plain_ms = cuda_ms(lambda: tile_ops.tile_eval_reference(*args, **kwargs),
                        2)
     bnd = tile_bound(args, kwargs)
+    rate = tile_rate(tile_ops, args, kwargs, ms)
     print(f"phase 6: d=3 NT={nt} ({n_act} active) MP={mp} T={t}: max abs "
           "err " + " ".join(f"{k}={v:.3g}" for k, v in err6.items())
           + " (relative " + " ".join(f"{k}={v:.3g}" for k, v in rel6.items())
-          + f"); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{bnd[0]:.3f} ms ({bnd[1]}) ({card})", flush=True)
+          + f"); kernel {ms:.3f} ms ({rate}), plain {plain_ms:.3f} ms, "
+          f"bound {bnd[0]:.3f} ms ({bnd[1]}) ({card})", flush=True)
+    # masked support rows cost the kernel's variance product as much as
+    # real ones, though the function needs none of them (tile_work)
+    print(f"  {row_shares(args, kwargs)}", flush=True)
     if max(rel6.values()) > KERNEL_TOL:
         fail(f"d=3 kernel disagrees with the plain version: {rel6}")
     if not cap_fit.calls or not cap_fill.calls:
@@ -555,10 +603,12 @@ def main() -> int:
     plain_ms = cuda_ms(lambda: tile_ops.tile_eval_reference(*args, **kwargs),
                        5)
     bound2 = tile_bound(args, kwargs)
+    rate = tile_rate(tile_ops, args, kwargs, ms)
     print(f"phase 3: NT={nt} ({n_act} active) MP={mp} T={t}: max abs err "
           + " ".join(f"{k}={v:.3g}" for k, v in err3.items())
-          + f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{bound2[0]:.3f} ms ({bound2[1]}) ({card})", flush=True)
+          + f"; kernel {ms:.3f} ms ({rate}), plain {plain_ms:.3f} ms, "
+          f"bound {bound2[0]:.3f} ms ({bound2[1]}) ({card})", flush=True)
+    print(f"  {row_shares(args, kwargs)}", flush=True)
     if max(err3.values()) > KERNEL_TOL:
         fail(f"kernel disagrees with the plain version: {err3}")
     # the fill factors what the chol wrapper was given; its L goes to linv

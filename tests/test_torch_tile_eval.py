@@ -207,51 +207,79 @@ def test_plan_tiles_for_slots_identical_to_jax(case):
     assert int(nj) == int(nt)
 
 
+def _check_cuda_kernel(args, d):
+    """One launch of the CUDA kernel on args (on the card) == the plain
+    version on the active tiles, max abs error <= 1e-4 (f32 rounding
+    order only). Returns the kernel's outputs."""
+    before = tile_ops.launches
+    out = tile_ops.tile_eval(*args, **_kw(d=d))
+    torch.cuda.synchronize()
+    assert tile_ops.launches == before + 1
+    ref = tile_ops.tile_eval_reference(*args, **_kw(d=d))
+    act = args[0] >= 0
+    for name, a, b in zip(("f", "g", "vf", "vg"), out, ref):
+        err = float((a[act] - b[act]).abs().max()) if bool(act.any()) else 0.
+        assert err <= 1e-4, (name, err)
+    return out
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,t,nt", [(16, 8, 6), (128, 256, 40),
-                                    (40, 100, 9)])
+                                    (40, 100, 9), (13, 40, 5), (16, 8, 1)])
 def test_cuda_kernel_matches_plain_version(m, t, nt):
     """The CUDA kernel == tile_eval_reference on the card, at the shapes
     of tests/test_pallas.py, the 2D production shape (M=128, MP=384,
-    T=256) and ragged sizes (MP and T not multiples of the kernel's
-    blocking); inactive tiles are left alone."""
+    T=256), ragged sizes (MP and T not multiples of the kernel's
+    blocking), MP=39 (not a multiple of 4: the scalar L^-1 loads) and a
+    plan whose one tile is inactive (no block works, no fault); inactive
+    tiles are left alone."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with CUDA: the tile kernel has no "
                     "CPU mode")
     _, args, _ = _tile_case(np.random.default_rng(m), 6, m, t, nt)
     args = tuple(a.cuda() for a in args)
-    before = tile_ops.launches
-    out = tile_ops.tile_eval(*args, **_kw())
-    torch.cuda.synchronize()
-    assert tile_ops.launches == before + 1
-    ref = tile_ops.tile_eval_reference(*args, **_kw())
-    act = args[0] >= 0
-    for name, a, b in zip(("f", "g", "vf", "vg"), out, ref):
-        err = float((a[act] - b[act]).abs().max())
-        assert err <= 1e-4, (name, err)
+    _check_cuda_kernel(args, 2)
     with pytest.raises(ValueError, match="got 4"):
         tile_ops.tile_eval(*args, **_kw(d=4))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,t,nt", [(320, 128, 24), (16, 8, 6),
-                                    (40, 100, 9), (100, 36, 5)])
+                                    (40, 100, 9), (100, 36, 5),
+                                    (64, 200, 4), (320, 128, 1)])
 def test_cuda_kernel_3d_matches_plain_version(m, t, nt):
     """The d=3 instance of the CUDA kernel == tile_eval_reference on the
     card: the 3D production shape (M=320, MP=1280, T=128), the shapes of
-    tests/test_pallas.py and ragged sizes (MP not a multiple of the 128
-    rows of a row block, T not a multiple of the 8 queries of a block)."""
+    tests/test_pallas.py, ragged sizes (MP not a multiple of the 128 rows
+    of a row panel, T(1+D) not a multiple of the 128 columns of a block),
+    T=200 (a column block straddling two derivative blocks) and a plan
+    whose one tile is inactive."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with CUDA: the tile kernel has no "
                     "CPU mode")
     _, args, _ = _tile_case(np.random.default_rng(m + 3), 6, m, t, nt, d=3)
     args = tuple(a.cuda() for a in args)
-    before = tile_ops.launches
-    out = tile_ops.tile_eval(*args, **_kw(d=3))
-    torch.cuda.synchronize()
-    assert tile_ops.launches == before + 1
-    ref = tile_ops.tile_eval_reference(*args, **_kw(d=3))
+    _check_cuda_kernel(args, 3)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_3d_is_deterministic_and_batch_independent():
+    """At the 3D production shape (M=320, MP=1280, T=128), two calls give
+    bitwise-equal outputs, and a tile evaluated alone gives bitwise the
+    outputs it gets inside a batch of 24 (every output has one writer and
+    a fixed summation order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA: the tile kernel has no "
+                    "CPU mode")
+    _, args, _ = _tile_case(np.random.default_rng(11), 6, 320, 128, 24, d=3)
+    args = tuple(a.cuda() for a in args)
+    out = _check_cuda_kernel(args, 3)
+    again = tile_ops.tile_eval(*args, **_kw(d=3))
     act = args[0] >= 0
-    for name, a, b in zip(("f", "g", "vf", "vg"), out, ref):
-        err = float((a[act] - b[act]).abs().max())
-        assert err <= 1e-4, (name, err)
+    for a, b in zip(out, again):
+        assert torch.equal(a[act], b[act])
+    for i in (0, 7, 22):
+        one = (args[0][i:i + 1],) + args[1:6] + (args[6][i:i + 1],)
+        alone = tile_ops.tile_eval(*one, **_kw(d=3))
+        for a, b in zip(out, alone):
+            assert torch.equal(a[i:i + 1], b)
