@@ -20,22 +20,42 @@ production shapes:
   (tests/torch_scenes.py), test() twice on the 15,225-point demo volume,
   then the last frame once more (the refresh).
 
+  Rendering and gradients (phases 9-11), on the maps of phases 4 and 7:
+  sphere_trace of all 28 poses' 1081 beams (30,268 rays, 48 and then
+  RENDER_STEPS_2D steps) against the floor plan's noise-free ranges (with
+  the real sequence: every beam of its frames, ungated), and the march
+  against the CPU port's on the same map on every 32nd beam;
+  render_depth of the 3D map from the last ring pose at subsample 2
+  (76,800 rays) against the scene's noise-free ray lengths; each followed
+  by the hit rays' implicit correction with their cells factored anew and
+  its backward to alpha and scale (the tile, chol and linv kernels'
+  autograd Functions). Then each Function's gradient against autograd
+  through its plain version (chol/linv at B=64, n=384 and 1280; the tile
+  kernel on phases 7's and 4's tile plans), the correction on 256 hit rays
+  against the CPU port on the same map, moved across with
+  runtime.checkpoint; the 3D map saved and loaded into a fresh
+  GPisMap3D(); and the mex front end (mex_compat) on the card.
+
 Usage: python3 chip_smoke.py    (from the repository root; needs CUDA)
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
 the line before it is the card's name and power limit, and the one
 before that lists each kernel at each shape of the two paths with its
-launches on that main path, its error against the plain version, its
-time, the plain version's, the bound (the least time the card could take
-for the same work) and the time of the PyTorch call that computes the
-same function, where there is one. Any failed phase exits non-zero
+launches on the update->test path (`launches`) and on each path apart
+(`launches_by_path`: update->test, the gated render march or
+render_depth, the correction with its backward; each counted from 0 just
+before that path ran), its error against the plain
+version, its time, the plain version's, the bound (the least time the
+card could take for the same work) and the time of the PyTorch call that
+computes the same function, where there is one. Any failed phase exits non-zero
 before that.
 """
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -76,6 +96,35 @@ MAPPED_FLOOR_3D = 0.9
 # share of the confident surface probe pairs (1 cm outside and 1 cm
 # inside the object along its true normal) whose SDF signs differ
 SIGN_FLOOR_3D = 0.9
+# render gates, fixed before the first chip run: the share of rays with
+# a finite true range that hit, and the median |t - true range| at those
+# hits (the JAX circle test's atol in 2D). The 2D gate holds the render
+# marched with RENDER_STEPS_2D steps: in free space a step is 0.9 fbias =
+# 0.18 m, so the 48 steps of the JAX package's default reach 8.6 m there,
+# and on every 16th beam 48 steps hit 0.834 of the beams, every miss out
+# of steps, 96 steps 0.939 (tests/test_torch_render_floor.py, the port
+# and the JAX package alike)
+RENDER_HIT_2D = 0.9
+RENDER_MEDIAN_2D = 0.05
+RENDER_STEPS_2D = 96
+# share of the 2D beams with a true range hit within 0.5 m of it: the
+# other hits stop at zero crossings of the posterior mean in cells far
+# from data, and the JAX package's render of the same map stops at the
+# same ones (tests/test_torch_render_floor.py: 0.7532 of every 16th beam
+# within 0.5 m at 96 steps, the port's hits and steps identical); the
+# floor sits 0.05 below that reference share
+RENDER_GOOD_2D = 0.7
+# the card's 2D march vs the CPU port's on the same map: the share of rays
+# with the same hit and t within CROSS_TOL (relative, to at least 1 m); a
+# ray whose |f| lands within rounding of eps at some step may stop a step
+# apart
+MARCH_AGREE = 0.99
+RENDER_HIT_3D = 0.8
+RENDER_MEDIAN_3D = 0.01
+# an autograd Function's gradient vs autograd through the plain version on
+# the same inputs, relative to the gradient's largest magnitude; also the
+# correction on the card vs the CPU port
+GRAD_TOL = 1e-3
 # peak rates of one H100 SXM at its 700 W limit (NVIDIA data sheet): fp32
 # outside the tensor cores (every kernel here is fp32 FMAs) and HBM3
 PEAK_FP32_FLOPS = 67e12
@@ -208,13 +257,18 @@ def factor_bound(x: torch.Tensor):
     return bound(b * n ** 3 / 3.0, 8.0 * b * n * n)
 
 
-def kernel_entry(name, replaces, launches, err, ms, plain_ms, bnd,
+def kernel_entry(name, replaces, launches_by_path, err, ms, plain_ms, bnd,
                  library_ms):
+    """One kernel of the kernels line: `launches` is its count on the
+    update->test path, `launches_by_path` its count on each path, each
+    counted from 0 just before that path ran."""
     source = ("gpismap_tpu_torch/csrc/tile_eval.cu"
               if name.startswith("tile_eval")
               else "gpismap_tpu_torch/csrc/chol.cu")
     return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "replaces": replaces,
+            "launches": launches_by_path["update_test"],
+            "launches_by_path": launches_by_path, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
             "bound_by": bnd[1], "library_ms": library_ms}
 
@@ -464,6 +518,7 @@ def run_3d(card, torch_scenes, chol_ops, tile_ops, cluster, convert):
     if max(rel7.values()) > KERNEL_TOL:
         fail(f"d=3 kernel disagrees with the plain version: {rel7}")
     out["tile_err"] = max(out["tile_err"], max(err7.values()))
+    out["tile_args"] = cap.args             # phase 10b's tile plan
     del cap
 
     # the same map on the CPU through the plain versions, at random points
@@ -532,8 +587,403 @@ def run_3d(card, torch_scenes, chol_ops, tile_ops, cluster, convert):
              f"{d_refresh}")
     out.update(tile_launches=tst[0],
                chol_launches=upd[1] + tst[1] + refresh[0],
-               linv_launches=upd[2] + tst[2] + refresh[1])
+               linv_launches=upd[2] + tst[2] + refresh[1],
+               map=m, frames=frames, qr=qr)
     return out
+
+
+def counts(tile_ops, chol_ops, reset: bool = False):
+    """(tile, chol, linv) launch counts; reset=True sets them to 0 first."""
+    if reset:
+        tile_ops.launches = 0
+        chol_ops.chol_launches = chol_ops.linv_launches = 0
+    return (tile_ops.launches, chol_ops.chol_launches, chol_ops.linv_launches)
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor, floor: float = 0.0) -> float:
+    """max |a - b| over max(max |b|, floor)."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), floor)
+
+
+def hit_stats(hit: np.ndarray, t: np.ndarray, truth: np.ndarray,
+              var: np.ndarray, near: float):
+    """(hit share of the rays with a finite true range, share of those
+    rays hit within `near` of it, median and p95 of |t - truth| at their
+    hits, hits on rays without a true range, and a note of the median
+    posterior var_f at the hits within and beyond `near`)."""
+    fin = np.isfinite(truth)
+    h = hit & fin
+    err = np.abs(t - truth)[h]
+    v = var[h]
+    off = err > near
+    note = (f"median var_f at hits within {near:g} m {np.median(v[~off]):.4g}, "
+            f"further off {np.median(v[off]) if off.any() else np.nan:.4g}")
+    return (float(h.sum() / fin.sum()), float((~off).sum() / fin.sum()),
+            float(np.median(err)), float(np.percentile(err, 95)),
+            int((hit & ~fin).sum()), note)
+
+
+def carry_to_cpu(checkpoint, m, cpu, path):
+    """The map m moved into the CPU mapper cpu with runtime.checkpoint."""
+    checkpoint.save(m, path)
+    checkpoint.load(cpu, path)
+    if cpu.num_nodes != m.num_nodes:
+        fail(f"the CPU copy has {cpu.num_nodes} nodes, the map {m.num_nodes}")
+    return cpu
+
+
+def correction_backward(render, m, o, d, t_hat, cfg, with_var=False):
+    """The hit-compacted correction of rays (o, d, t_hat) on map m, with the
+    touched cells factored anew (factors=None) so that scale reaches the
+    factors too, and its backward: the gradients of sum(t) (+ sum(vf))
+    with respect to store.alpha and scale. Returns (t, f, d/d alpha,
+    d/d scale, <g, d> per ray)."""
+    alpha = m.store.alpha.detach().clone().requires_grad_()
+    scale = torch.tensor(m.p.map_scale_param, dtype=torch.float32,
+                         device=m.device, requires_grad=True)
+    t, f, g, vf = render.implicit_correct(
+        m.store._replace(alpha=alpha), m.grid, o, d, t_hat, cfg, None,
+        render.hyper_from_scale(scale, m.dim))
+    loss = t.sum() + (vf.sum() if with_var else 0.0)
+    g_alpha, g_scale = torch.autograd.grad(loss, [alpha, scale])
+    return (t.detach(), f.detach(), g_alpha, g_scale,
+            torch.sum(g.detach() * d, dim=-1))
+
+
+def check_grads(name, g_alpha, g_scale):
+    if not (torch.isfinite(g_alpha).all() and torch.isfinite(g_scale)):
+        fail(f"{name}: non-finite gradient")
+    if float(g_alpha.abs().max()) == 0.0 or float(g_scale) == 0.0:
+        fail(f"{name}: zero gradient (alpha max "
+             f"{float(g_alpha.abs().max())}, scale {float(g_scale)})")
+
+
+def render_fwd_bwd(card, render, m, o, d, cfg, tile_ops, chol_ops, label):
+    """March all rays through the mapper's factor cache, then the
+    hit-compacted correction's backward of the summed hit depths (alpha,
+    scale); twice, the first call paying the backward's first use of its
+    CUDA kernels. Returns the march's output and the launches of the
+    second call's correction and backward, counted from 0 just before it."""
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = render.sphere_trace(m.store, m.grid, o, d, cfg,
+                                  m._get_factors())
+        idx = torch.nonzero(out["hit"]).reshape(-1)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        counts(tile_ops, chol_ops, reset=True)
+        _, _, g_alpha, g_scale, _ = correction_backward(
+            render, m, o[idx], d[idx], out["t_hat"][idx], cfg)
+        torch.cuda.synchronize()
+        n = np.asarray(counts(tile_ops, chol_ops))
+        walls.append((time.time() - t0, time.time() - t1))
+        check_grads(label, g_alpha, g_scale)
+    print(f"  {label}: forward+backward {len(o) / walls[1][0]:.0f} rays/s "
+          f"({walls[1][0]:.3f} s: the march, then {walls[1][1]:.3f} s for the "
+          f"correction of the {len(idx)} hit rays with their cells factored "
+          f"anew and its backward; the first call {walls[0][0]:.3f} s, "
+          f"{walls[0][1]:.3f} s of it in the correction and backward); "
+          f"launches tile/chol/linv {n[0]}/{n[1]}/{n[2]} in the correction "
+          f"and its backward; d sum(t)/d scale {float(g_scale):.6g}, max "
+          f"|d sum(t)/d alpha| {float(g_alpha.abs().max()):.6g} ({card})",
+          flush=True)
+    if n.min() < 1:
+        fail(f"{label}: the correction and its backward launched "
+             f"tile/chol/linv {n} times")
+    return out, n
+
+
+def run_render_2d(card, m, cpu, frames, torch_scenes, render, tile_ops,
+                  chol_ops):
+    """Phase 9: sphere_trace of every beam of the 28 poses on the 2D map,
+    against the floor plan's noise-free ranges (a real sequence has no
+    floor plan: its beams are marched, not gated), the card's march
+    against the CPU port's on every 32nd beam, then the correction's
+    backward. Returns the launches of the march and of the correction
+    with its backward, each counted from 0 just before it, and the rays."""
+    if frames is None:
+        o_np, d_np, rng = torch_scenes.beams(
+            torch_scenes.floor_plan(), torch_scenes.floor_trajectory(28))
+        truth = np.where(rng < torch_scenes.MAX_RANGE, rng, np.inf)
+        what = "28 poses x 1081 beams"
+    else:
+        o_np, d_np, _ = torch_scenes.frame_rays(frames)
+        truth = None
+        what = f"every beam of the {len(frames)} frames"
+    o = torch.as_tensor(o_np, device=m.device)
+    d = torch.as_tensor(d_np, device=m.device)
+    for n_steps in (48, RENDER_STEPS_2D):
+        cfg = render.config_from_mapper(m, n_steps=n_steps)
+        m._factors = None           # the render fills the factor cache
+        counts(tile_ops, chol_ops, reset=True)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = render.sphere_trace(m.store, m.grid, o, d, cfg,
+                                  m._get_factors())
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        n_march = np.asarray(counts(tile_ops, chol_ops))
+        hit = out["hit"].cpu().numpy()
+        steps = out["steps"].cpu().numpy()
+        line = (f"phase 9: 2D render, {len(o)} rays ({what}), {n_steps} "
+                f"steps: {len(o) / wall:.0f} rays/s "
+                f"forward ({wall:.3f} s, factor-cache fill included); hits "
+                f"{hit.mean():.4f} of the rays, "
+                f"{int(((~hit) & (steps == n_steps)).sum())} out of steps; "
+                f"launches tile/chol/linv {n_march[0]}/{n_march[1]}/"
+                f"{n_march[2]} ({card})")
+        if truth is None:
+            print(line + "; no floor plan: the hit gates are skipped",
+                  flush=True)
+            continue
+        share, good, med, p95, false, note = hit_stats(
+            hit, out["t"].detach().cpu().numpy(), truth,
+            out["var"].cpu().numpy(), 0.5)
+        print(line + f"\n  of the {int(np.isfinite(truth).sum())} beams with "
+              f"a true range < {torch_scenes.MAX_RANGE:g} m: hit {share:.4f}, "
+              f"hit within 0.5 m of it {good:.4f}; |t - range| at hits median "
+              f"{med:.4g} m, p95 {p95:.4g} m ({note}); hits on the "
+              f"{int((~np.isfinite(truth)).sum())} beams without a true "
+              f"range {false}", flush=True)
+    if n_march.min() < 1:
+        fail(f"the 2D render launched tile/chol/linv {n_march} times")
+    if truth is not None and (share < RENDER_HIT_2D or med > RENDER_MEDIAN_2D
+                              or good < RENDER_GOOD_2D or false > 0):
+        fail(f"2D render at {RENDER_STEPS_2D} steps: hit share {share} "
+             f"(floor {RENDER_HIT_2D}), within 0.5 m {good} (floor "
+             f"{RENDER_GOOD_2D}), median error {med} m (limit "
+             f"{RENDER_MEDIAN_2D}), {false} hits without a true range")
+
+    # the same march by the CPU port on the same map, every 32nd beam
+    t0 = time.time()
+    sub = slice(None, None, 32)
+    ref = render.sphere_trace(cpu.store, cpu.grid, o[sub].cpu(),
+                              d[sub].cpu(), cfg, cpu._get_factors())
+    t_card = out["t"][sub].detach().cpu()
+    agree = ((out["hit"][sub].cpu() == ref["hit"])
+             & ((t_card - ref["t"].detach()).abs()
+                <= CROSS_TOL * ref["t"].detach().abs().clamp(min=1.0)))
+    share_agree = float(agree.double().mean())
+    print(f"  card vs CPU port march on every 32nd beam ({len(agree)} rays, "
+          f"{RENDER_STEPS_2D} steps): same hit and t within {CROSS_TOL:g} "
+          f"relative on {share_agree:.4f} of them; CPU hits "
+          f"{float(ref['hit'].double().mean()):.4f} ({time.time() - t0:.1f} "
+          f"s)", flush=True)
+    if share_agree < MARCH_AGREE:
+        fail(f"the card's 2D march agrees with the CPU port's on "
+             f"{share_agree} of the rays (floor {MARCH_AGREE})")
+
+    out, n_corr = render_fwd_bwd(card, render, m, o, d, cfg, tile_ops,
+                                 chol_ops, f"2D render at {RENDER_STEPS_2D} "
+                                 f"steps")
+    return n_march, n_corr, (o, d, out["t_hat"], out["hit"], cfg)
+
+
+def run_render_3d(card, m, frames, torch_scenes, render, tile_ops, chol_ops):
+    """Phase 10: render_depth from the last ring pose at subsample 2 on the
+    3D map, against the scene's noise-free ray lengths, then the march
+    and the correction's backward. Returns the launches of render_depth
+    and of the correction with its backward, each counted from 0 just
+    before it, and the rays."""
+    pose = frames[-1][1]
+    tr, rot = pose[:3], pose[3:12].reshape(3, 3, order="F")
+    m._factors = None               # the render fills the factor cache
+    counts(tile_ops, chol_ops, reset=True)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    img = render.render_depth(m, tr, rot, subsample=2)
+    wall = time.time() - t0
+    n_depth = np.asarray(counts(tile_ops, chol_ops))
+    truth = torch_scenes.ray_lengths(pose, m.cam, 2)
+    share, good, med, p95, false, note = hit_stats(
+        img["hit"], img["depth"], truth, img["var"], 0.01)
+    n_rays = img["hit"].size
+    print(f"phase 10: 3D render_depth from the last ring pose at subsample "
+          f"2, {img['hit'].shape[1]}x{img['hit'].shape[0]} = {n_rays} rays: "
+          f"{n_rays / wall:.0f} rays/s forward ({wall:.3f} s, factor-cache "
+          f"fill included); of the {int(np.isfinite(truth).sum())} pixels "
+          f"with a finite true depth: hit {share:.4f}, hit within 0.01 m "
+          f"{good:.4f}; |t - ray length| at hits median {med:.4g} m, p95 "
+          f"{p95:.4g} m ({note}); hits on the "
+          f"{int((~np.isfinite(truth)).sum())} pixels without a true depth "
+          f"{false}; launches tile/chol/linv {n_depth[0]}/{n_depth[1]}/"
+          f"{n_depth[2]} per render ({card})", flush=True)
+    if n_depth.min() < 1:
+        fail(f"the 3D render launched tile/chol/linv {n_depth} times")
+    if share < RENDER_HIT_3D or med > RENDER_MEDIAN_3D:
+        fail(f"3D render: hit share {share} (floor {RENDER_HIT_3D}), median "
+             f"error {med} m (limit {RENDER_MEDIAN_3D})")
+    o, d, _ = render.camera_rays(tr, rot, m.cam, 2)
+    o = torch.as_tensor(o, device=m.device)
+    d = torch.as_tensor(d, device=m.device)
+    cfg = render.config_from_mapper(m)
+    out, n_corr = render_fwd_bwd(card, render, m, o, d, cfg, tile_ops,
+                                 chol_ops, "3D render")
+    return n_depth, n_corr, (o, d, out["t_hat"], out["hit"], cfg)
+
+
+def check_factor_functions(card, chol_ops, n):
+    """Phase 10b, chol and linv: the Functions' gradients at B=64 and this
+    n vs autograd through the plain versions, and their backward times."""
+    k = spd_batch(64, n, seed=n)
+    gen = torch.Generator(device=k.device).manual_seed(5)
+    g_out = torch.randn(k.shape, generator=gen, device=k.device)
+    l_ref = chol_ops.chol_reference(k).contiguous()
+    for name, fn, ref, x in (("chol", chol_ops.chol, chol_ops.chol_reference,
+                              k),
+                             ("linv", chol_ops.linv, chol_ops.linv_reference,
+                              l_ref)):
+        xk = x.clone().requires_grad_()
+        yk = fn(xk)
+        (gk,) = torch.autograd.grad(yk, xk, g_out, retain_graph=True)
+        xr = x.clone().requires_grad_()
+        yr = ref(xr)
+        (gr,) = torch.autograd.grad(yr, xr, g_out, retain_graph=True)
+        rel = rel_err(gk, gr)
+        ms = cuda_ms(lambda: torch.autograd.grad(yk, xk, g_out,
+                                                 retain_graph=True), 5)
+        plain = cuda_ms(lambda: torch.autograd.grad(yr, xr, g_out,
+                                                    retain_graph=True), 5)
+        print(f"phase 10b: {name} Function B=64 n={n}: gradient vs autograd "
+              f"through the plain version max abs err "
+              f"{float((gk - gr).abs().max()):.3g} (relative {rel:.3g}, "
+              f"max |gradient| {float(gr.abs().max()):.4g}); backward "
+              f"{ms:.3f} ms (plain version's autograd {plain:.3f} ms) "
+              f"({card})", flush=True)
+        if rel > GRAD_TOL or float(gk.abs().max()) == 0.0:
+            fail(f"{name} Function gradient: relative error {rel}")
+        del xk, yk, xr, yr, gk, gr
+
+
+def check_tile_function(card, tile_ops, captured, label):
+    """Phase 10b, the tile Function on a captured tile plan with random
+    upstream gradients (inactive tiles included) vs autograd through the
+    plain version, and its backward time."""
+    args, kwargs = captured
+    d, dev = kwargs["d"], args[1].device
+    gen = torch.Generator(device=dev).manual_seed(6)
+    hyper0 = [torch.tensor(float(kwargs[k]), device=dev)
+              for k in ("scale", "val_const", "grad_const")]
+    res = []
+    for fn in (tile_ops.tile_eval, tile_ops.tile_eval_reference):
+        leaves = [args[i].clone().requires_grad_() for i in (1, 2, 3, 6)]
+        hyper = [h.clone().requires_grad_() for h in hyper0]
+        out = fn(args[0], leaves[0], leaves[1], leaves[2], args[4], args[5],
+                 leaves[3], d, *hyper)
+        if not res:
+            g_out = [torch.randn(o.shape, generator=gen, device=dev)
+                     for o in out]
+        grads = torch.autograd.grad(out, leaves + hyper, g_out,
+                                    retain_graph=True)
+        ms = cuda_ms(lambda: torch.autograd.grad(out, leaves + hyper, g_out,
+                                                 retain_graph=True), 2)
+        res.append((grads, ms))
+        del out, leaves, hyper
+    worst = 0.0
+    parts = []
+    for name, gk, gr in zip(("linv", "xt", "alpha", "qt", "scale",
+                             "val_const", "grad_const"), res[0][0],
+                            res[1][0]):
+        rel = rel_err(gk, gr)
+        worst = max(worst, rel)
+        parts.append(f"{name}={rel:.3g}")
+        if float(gk.abs().max()) == 0.0:
+            fail(f"tile Function ({label}): zero gradient of {name}")
+    print(f"phase 10b: tile Function, {label}: gradient vs autograd through "
+          f"the plain version, relative " + " ".join(parts)
+          + f"; backward {res[0][1]:.3f} ms (plain recompute in chunks), "
+          f"the plain version's autograd {res[1][1]:.3f} ms ({card})",
+          flush=True)
+    if worst > GRAD_TOL:
+        fail(f"tile Function gradient ({label}): relative error {worst}")
+
+
+def check_correction_vs_cpu(card, render, m, cpu, rays, label):
+    """Phase 10b: the correction on 256 of the render's hit rays (picked
+    with a seed) on the card vs the CPU port on the same map (cpu, moved
+    across with runtime.checkpoint) and the same t_hat: t, f and the
+    gradients of sum(t) + sum(vf) (vf carries the factors, so chol and
+    linv get a gradient too) with respect to alpha and scale."""
+    o, d, t_hat, hit, cfg = rays
+    idx = torch.nonzero(hit).reshape(-1).cpu().numpy()
+    pick = np.sort(np.random.default_rng(12).choice(idx, min(256, len(idx)),
+                                                    replace=False))
+    sel = torch.as_tensor(pick, device=m.device)
+    gpu = correction_backward(render, m, o[sel], d[sel], t_hat[sel], cfg,
+                              with_var=True)
+    ref = correction_backward(render, cpu, o[sel].cpu(), d[sel].cpu(),
+                              t_hat[sel].cpu(), cfg, with_var=True)
+    # t and f to at least 1 (f is near 0 at a hit), the gradients to their
+    # largest magnitude
+    names = ("t", "f", "d/d alpha", "d/d scale")
+    errs = {name: rel_err(a, b, floor)
+            for name, a, b, floor in zip(names, gpu, ref, (1.0, 1.0, 0.0, 0.0))}
+    # the correction divides by <g, d> and its gradient by its square, so
+    # the kernel's f32 error of g weighs most at grazing rays: t's error
+    # over the rays with |<g, d>| >= 0.1 alone, for reading
+    denom = ref[4].abs()
+    ok = denom >= 0.1
+    t_ok = rel_err(gpu[0].cpu()[ok], ref[0][ok], 1.0) if ok.any() else np.nan
+    print(f"phase 10b: {label} correction on {len(sel)} hit rays, card vs CPU "
+          f"port: " + " ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f" relative; min |<g, d>| {float(denom.min()):.3g}; t over the "
+          f"{int(ok.sum())} rays with |<g, d>| >= 0.1: {t_ok:.3g} ({card})",
+          flush=True)
+    if max(errs.values()) > GRAD_TOL:
+        fail(f"{label} correction: card and CPU differ: {errs}")
+    check_grads(f"{label} correction", gpu[2], gpu[3])
+
+
+def run_checkpoint_mex(card, m, frames2d, frames3d, qr, grad_const,
+                       torch_scenes, checkpoint, tmp):
+    """Phase 11: save the 3D map, load it into a fresh GPisMap3D(), compare
+    test(); then the mex surface on the card."""
+    from gpismap_tpu_torch import GPisMap3D, mex_compat
+
+    path = os.path.join(tmp, "map3d.npz")
+    checkpoint.save(m, path)
+    m2 = GPisMap3D()
+    checkpoint.load(m2, path)
+    if m2.device.type != "cuda" or m2.num_nodes != m.num_nodes:
+        fail(f"the loaded 3D map has {m2.num_nodes} nodes on {m2.device}")
+    d_load = np.abs(m2.test(qr) - m.test(qr)).max(0)
+    print(f"phase 11: 3D map saved and loaded into a fresh GPisMap3D() "
+          f"({m2.num_nodes} nodes): test() at 4096 random points vs the "
+          f"original's max abs diff " + " ".join(f"{v:.3g}" for v in d_load),
+          flush=True)
+    if max(d_load[:5].max(), d_load[5:].max() / grad_const) > KERNEL_TOL:
+        fail(f"the loaded 3D map answers differently: {d_load}")
+    del m2
+
+    mex_compat.gpismap("reset")
+    for f in frames2d[:3]:
+        mex_compat.gpismap("update", *f)
+    if mex_compat._gpm2.device.type != "cuda":
+        fail("mex_compat.gpismap built its map off the card")
+    q2 = torch_scenes.query_grid()[:4096]
+    res2, dt2 = mex_compat.gpismap("test", q2.T)
+    mex_compat.gpismap("reset")
+    mex_compat.gpismap3("reset")
+    mex_compat.gpismap3("setCamera", 1, "bigbird")
+    for depth, pose in frames3d[:2]:
+        mex_compat.gpismap3("update", depth, pose)
+    if mex_compat._gpm3.device.type != "cuda":
+        fail("mex_compat.gpismap3 built its map off the card")
+    res3, dt3 = mex_compat.gpismap3("test", qr.T)
+    pts = mex_compat.gpismap3("getAllPoints")
+    mex_compat.gpismap3("reset")
+    print(f"  mex: gpismap 3 updates, test {res2.shape} in {dt2 * 1e3:.1f} "
+          f"ms; gpismap3 setCamera, 2 updates, test {res3.shape} in "
+          f"{dt3 * 1e3:.1f} ms, getAllPoints {pts.shape}, reset", flush=True)
+    if (res2.shape != (6, len(q2)) or res3.shape != (8, len(qr))
+            or pts.ndim != 2 or pts.shape[1] != 3 or len(pts) == 0
+            or not (np.isfinite(res2).all() and np.isfinite(res3).all())):
+        fail(f"mex shapes: {res2.shape} {res3.shape} {pts.shape}")
+    if mex_compat._gpm2 is not None or mex_compat._gpm3 is not None:
+        fail("mex reset left a map behind")
 
 
 def main() -> int:
@@ -544,10 +994,11 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import torch_scenes
-    from gpismap_tpu_torch import GPisMap2D, convert
+    from gpismap_tpu_torch import GPisMap2D, GPisMap3D, convert, render
     from gpismap_tpu_torch.models import cluster
     from gpismap_tpu_torch.ops import chol as chol_ops
     from gpismap_tpu_torch.ops import tile_eval as tile_ops
+    from gpismap_tpu_torch.runtime import checkpoint
     from gpismap_tpu_torch.runtime import index as index_mod
 
     # ---- phase 1: the card and the fp32 settings ----
@@ -747,31 +1198,73 @@ def main() -> int:
 
     # ---- phases 6-8: the 3D path ----
     r3 = run_3d(card, torch_scenes, chol_ops, tile_ops, cluster, convert)
+    m3 = r3["map"]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- phases 9-10: rendering on the maps of phases 4 and 7 ----
+        cpu2 = carry_to_cpu(checkpoint, m, GPisMap2D(device="cpu"),
+                            os.path.join(tmp, "map2d.npz"))
+        m9, c9, rays2 = run_render_2d(card, m, cpu2,
+                                      frames if gazebo else None,
+                                      torch_scenes, render, tile_ops,
+                                      chol_ops)
+        m10, c10, rays3 = run_render_3d(card, m3, r3["frames"], torch_scenes,
+                                        render, tile_ops, chol_ops)
+
+        # ---- phase 10b: the autograd Functions vs their plain versions ----
+        for n in (384, 1280):
+            check_factor_functions(card, chol_ops, n)
+        check_tile_function(card, tile_ops, r3.pop("tile_args"),
+                            "d=3, phase 7's tile plan")
+        check_tile_function(card, tile_ops, cap.args,
+                            "d=2, phase 4's tile plan")
+        check_correction_vs_cpu(card, render, m, cpu2, rays2, "2D")
+        cpu3 = carry_to_cpu(checkpoint, m3,
+                            GPisMap3D(camera=m3.cam, device="cpu"),
+                            os.path.join(tmp, "map3d_cpu.npz"))
+        check_correction_vs_cpu(card, render, m3, cpu3, rays3, "3D")
+
+        # ---- phase 11: checkpoint and mex on the card ----
+        run_checkpoint_mex(card, m3, frames, r3["frames"], r3["qr"],
+                           m3._test_kwargs()["grad_const"], torch_scenes,
+                           checkpoint, tmp)
 
     t2 = "gpismap_tpu/ops/pallas_tile.py:118"
     pc = "gpismap_tpu/ops/pallas_chol.py"
     h3 = r3["headline"]
+
+    def paths(update_test, render_paths, i):
+        """Launches of kernel i (0 tile, 1 chol, 2 linv) on each path, the
+        update->test path first."""
+        return dict([("update_test", int(update_test))]
+                    + [(k, int(v[i])) for k, v in render_paths])
+
+    r2d = (("render_2d_march", m9), ("render_2d_correction_backward", c9))
+    r3d = (("render_3d_depth", m10), ("render_3d_correction_backward", c10))
     kernels = [
-        kernel_entry("tile_eval (d=2)", t2, launches,
+        kernel_entry("tile_eval (d=2)", t2, paths(launches, r2d, 0),
                      max(max(err3.values()), max(err4.values())), ms,
                      plain_ms, bound2, None),
-        kernel_entry("tile_eval (d=3)", t2, r3["tile_launches"],
-                     r3["tile_err"], r3["tile_ms"], r3["tile_plain_ms"],
-                     r3["tile_bound"], None),
+        kernel_entry("tile_eval (d=3)", t2,
+                     paths(r3["tile_launches"], r3d, 0), r3["tile_err"],
+                     r3["tile_ms"], r3["tile_plain_ms"], r3["tile_bound"],
+                     None),
         kernel_entry("chol (n=384)", f"{pc}:167",
-                     upd[0] + first[0] + refresh[0], chol_err,
+                     paths(upd[0] + first[0] + refresh[0], r2d, 1), chol_err,
                      headline["chol_ms"], headline["chol_plain_ms"],
                      headline["bound"], headline["chol_library_ms"]),
-        kernel_entry("chol (n=1280)", f"{pc}:167", r3["chol_launches"],
-                     r3["chol_err"], h3["chol_ms"], h3["chol_plain_ms"],
-                     h3["bound"], h3["chol_library_ms"]),
+        kernel_entry("chol (n=1280)", f"{pc}:167",
+                     paths(r3["chol_launches"], r3d, 1), r3["chol_err"],
+                     h3["chol_ms"], h3["chol_plain_ms"], h3["bound"],
+                     h3["chol_library_ms"]),
         kernel_entry("linv (n=384)", f"{pc}:188",
-                     upd[1] + first[1] + refresh[1], linv_err,
+                     paths(upd[1] + first[1] + refresh[1], r2d, 2), linv_err,
                      headline["linv_ms"], headline["linv_plain_ms"],
                      headline["bound"], headline["linv_library_ms"]),
-        kernel_entry("linv (n=1280)", f"{pc}:188", r3["linv_launches"],
-                     r3["linv_err"], h3["linv_ms"], h3["linv_plain_ms"],
-                     h3["bound"], h3["linv_library_ms"])]
+        kernel_entry("linv (n=1280)", f"{pc}:188",
+                     paths(r3["linv_launches"], r3d, 2), r3["linv_err"],
+                     h3["linv_ms"], h3["linv_plain_ms"], h3["bound"],
+                     h3["linv_library_ms"])]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

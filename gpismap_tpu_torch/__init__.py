@@ -6,7 +6,10 @@ module layout. It imports torch and never jax, nor anything of
 (update -> test) run on one torch device, a CUDA card unless the caller
 asks for the CPU, with the map query's tile evaluation and the cluster
 GPs' Cholesky and L^-1 as hand-written CUDA kernels for NVIDIA Hopper
-(ops/tile_eval.py, ops/chol.py, csrc/).
+(ops/tile_eval.py, ops/chol.py, csrc/), which autograd differentiates
+through on the card. Rendering (render), checkpoints (runtime.checkpoint)
+and the mex command front end (mex_compat) are imported by their module
+paths, as in the JAX package.
 """
 
 from .api import GPisMap2D  # noqa: F401

@@ -5,6 +5,16 @@ GP state in flat slot-indexed tensors (the replacement of the
 reference's per-QuadTree OnGPIS registry, quadtree.h:124), and the
 batched SDF query with 3-nearest-cell variance blending
 (GPisMap.cpp:665-763).
+
+The fit (retrain_cells), the factorization (factorize_slots and the
+query's own) and map_test are differentiable in the store fields, the
+queries, scale, val_const and grad_const (tensors), on the CPU through
+the plain versions and on the card through the kernels' autograd
+Functions (ops/chol.py, ops/tile_eval.py); render.implicit_correct
+relies on it. They keep no host copy of a differentiated value, and
+write in place only into tensors they have just made. The factor-cache
+upkeep (update_factors_from_l) writes into the cache in place and is
+not differentiable; it runs in the update, never under a gradient.
 """
 from __future__ import annotations
 

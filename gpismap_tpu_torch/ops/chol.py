@@ -18,6 +18,14 @@ a CUDA tensor is a blocked factorization of several kernel launches on
 the current stream (cuda_launches_per_chol), and one linv() the inverses
 of the 64-wide diagonal blocks merged level by level
 (cuda_launches_per_linv).
+
+On a CUDA tensor both run through torch.autograd.Functions (_Chol,
+_Linv) whose forward is the kernel and whose backward is closed-form in
+plain matrix products (chol_backward, linv_backward), as the JAX
+package's autodiff emits them outside any Pallas kernel. chol's backward
+takes L^-1 from the linv kernel. A clamped pivot needs no special case:
+the backward is the closed form at the clamped factor, whose inverse is
+then huge, where torch.linalg would have raised in the forward.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ import threading
 from typing import Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from .. import _native
 
@@ -134,25 +143,76 @@ def _launch(name: str, x: torch.Tensor):
     return out, True
 
 
+def chol_backward(l: torch.Tensor, linv_l: torch.Tensor,
+                  grad_l: torch.Tensor) -> torch.Tensor:
+    """Gradient of the loss with respect to the SPD input k of l = chol(k):
+    with X = L^-1 (linv_l) and Phi the lower triangle with its diagonal
+    halved, A = X^T Phi(L^T grad_l) X, symmetrized as (A + A^T) / 2 (the
+    closed form torch.linalg.cholesky's autograd uses). Plain matrix
+    products, on any device."""
+    p = torch.tril(l.mT @ grad_l)
+    p = p - 0.5 * torch.diag_embed(torch.diagonal(p, dim1=-2, dim2=-1))
+    a = linv_l.mT @ p @ linv_l
+    return 0.5 * (a + a.mT)
+
+
+def linv_backward(x: torch.Tensor, grad_x: torch.Tensor) -> torch.Tensor:
+    """Gradient of the loss with respect to the lower-triangular input l
+    of x = linv(l) = L^-1: tril(-X^T grad_x X^T). Plain matrix products,
+    on any device."""
+    return torch.tril(-x.mT @ grad_x @ x.mT)
+
+
+class _Chol(torch.autograd.Function):
+    """chol on a CUDA tensor: the kernel forward, chol_backward with L^-1
+    from the linv kernel."""
+
+    @staticmethod
+    def forward(ctx, k):
+        global chol_launches
+        out, launched = _launch("chol", k)
+        chol_launches += launched
+        ctx.save_for_backward(out)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_l):
+        (l,) = ctx.saved_tensors
+        return chol_backward(l, linv(l), grad_l)
+
+
+class _Linv(torch.autograd.Function):
+    """linv on a CUDA tensor: the kernel forward, linv_backward."""
+
+    @staticmethod
+    def forward(ctx, l):
+        global linv_launches
+        out, launched = _launch("linv", l)
+        linv_launches += launched
+        ctx.save_for_backward(out)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_x):
+        (x,) = ctx.saved_tensors
+        return linv_backward(x, grad_x)
+
+
 def chol(k: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor of each SPD matrix of k [B, n, n]: the CUDA
-    kernel for a CUDA tensor (counted in chol_launches), the plain version
-    for a CPU tensor."""
-    global chol_launches
+    kernel through _Chol for a CUDA tensor (counted in chol_launches), the
+    plain version for a CPU tensor."""
     if k.device.type == "cpu":
         return chol_reference(k)
-    out, launched = _launch("chol", k)
-    chol_launches += launched
-    return out
+    return _Chol.apply(k)
 
 
 def linv(l: torch.Tensor) -> torch.Tensor:
     """L^-1 of each lower-triangular matrix of l [B, n, n]: the CUDA
-    kernel for a CUDA tensor (counted in linv_launches), the plain version
-    for a CPU tensor."""
-    global linv_launches
+    kernel through _Linv for a CUDA tensor (counted in linv_launches), the
+    plain version for a CPU tensor."""
     if l.device.type == "cpu":
         return linv_reference(l)
-    out, launched = _launch("linv", l)
-    linv_launches += launched
-    return out
+    return _Linv.apply(l)

@@ -153,11 +153,14 @@ def test_update_batch_and_reset():
 
 def test_import_leaves_jax_out():
     """The port imports torch and never jax (the GPU host has none), nor
-    any module of the JAX package: after the import and a construction
-    of each mapper on the CPU, no loaded module comes from gpismap_tpu/."""
+    any module of the JAX package: after the import of the package, its
+    render, checkpoint and mex modules, and a construction of each
+    mapper on the CPU, no loaded module comes from gpismap_tpu/."""
     code = (
         "import os, sys\n"
         "import gpismap_tpu_torch as g, gpismap_tpu_torch.convert\n"
+        "import gpismap_tpu_torch.render, gpismap_tpu_torch.mex_compat\n"
+        "import gpismap_tpu_torch.runtime.checkpoint\n"
         "g.GPisMap2D(device='cpu'); g.GPisMap3D(device='cpu')\n"
         "ref = os.path.join(os.getcwd(), 'gpismap_tpu') + os.sep\n"
         "bad = [n for n, m in list(sys.modules.items())\n"

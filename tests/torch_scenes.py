@@ -140,6 +140,29 @@ def scans(walls: np.ndarray, poses: np.ndarray, n_beams: int = N_BEAMS,
     return frames
 
 
+def frame_rays(frames):
+    """Every beam of frames [(thetas [B], ranges [B], pose6 [6])] as a ray
+    for a renderer: (origins [F*B, 2] at the sensor, unit dirs [F*B, 2],
+    the frames' ranges [F*B]), float32, frame-major."""
+    origins, dirs = [], []
+    for thetas, _, p in frames:
+        rot = p[2:6].reshape(2, 2, order="F").astype(np.float64)
+        origin = p[:2].astype(np.float64) + rot @ np.asarray(SENSOR_OFFSET)
+        ang = thetas.astype(np.float64) + np.arctan2(p[3], p[2])
+        origins.append(np.broadcast_to(origin, (len(thetas), 2)))
+        dirs.append(np.stack([np.cos(ang), np.sin(ang)], -1))
+    return (np.concatenate(origins).astype(np.float32),
+            np.concatenate(dirs).astype(np.float32),
+            np.concatenate([f[1] for f in frames]).astype(np.float32))
+
+
+def beams(walls: np.ndarray, poses: np.ndarray, n_beams: int = N_BEAMS):
+    """Every beam of the scanner at each pose as a ray for a renderer: the
+    frame_rays of the noise-free scans (ranges MAX_RANGE where nothing is
+    hit)."""
+    return frame_rays(scans(walls, poses, n_beams, noise=0.0))
+
+
 def floor_frames(n_frames: int = 28, n_beams: int = N_BEAMS, seed: int = 0):
     return scans(floor_plan(), floor_trajectory(n_frames), n_beams,
                  seed=seed)
@@ -299,6 +322,18 @@ def render_depth(pose: np.ndarray, cam, noise: float = 3e-4,
         t = t + noise * rng.standard_normal(t.shape)
     t = np.round(t * 1e4) * 1e-4
     return np.where(hit, t, BACKGROUND).astype(np.float32)
+
+
+def ray_lengths(pose: np.ndarray, cam, subsample: int = 1) -> np.ndarray:
+    """Noise-free truth for a renderer's unit pixel rays (the rows and
+    columns a renderer at `subsample` takes): render_depth gives the depth
+    z along the optical axis, and a unit ray through pixel (u, v) travels
+    z * |(u, v, 1)| to the same point. inf where nothing is hit."""
+    z = render_depth(pose, cam, noise=0.0).astype(np.float64)
+    z = np.where(z < BACKGROUND, z, np.inf)[::subsample, ::subsample]
+    u = (np.arange(0, cam.width, subsample) - cam.cx) / cam.fx
+    v = (np.arange(0, cam.height, subsample) - cam.cy) / cam.fy
+    return z * np.sqrt(u[None, :] ** 2 + v[:, None] ** 2 + 1.0)
 
 
 def object_frames(n_frames: int, cam, seed: int = 0):

@@ -4,8 +4,12 @@
 Runs one of chip_smoke.py's scenes under torch.profiler: 2D (28 synthetic
 1081-beam frames, then test() on the 49,551-point demo grid) or, with
 --3d, 3D (40 synthetic 640x480 depth frames, then test() on the
-15,225-point demo volume). Prints, for the update loop, the first test()
-(factor cache fill included) and a warm test(): host wall time, summed
+15,225-point demo volume), then its render as chip_smoke.py's phases 9-10
+run it (2D: the 30,268 beams marched 96 steps; 3D: the last ring pose at
+subsample 2, 48 steps). Prints, for the update loop, the first test()
+(factor cache fill included), a warm test(), the render's march (factor
+cache fill included) and the hit rays' correction with its backward
+(alpha and scale, the cells factored anew): host wall time, summed
 device kernel time, the device's busy share (kernel time / wall; overlap
 ignored), and the top kernels and host ops.
 
@@ -53,7 +57,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import torch_scenes
-    from gpismap_tpu_torch import BIGBIRD_CAMS, GPisMap2D, GPisMap3D
+    from chip_smoke import correction_backward
+    from gpismap_tpu_torch import BIGBIRD_CAMS, GPisMap2D, GPisMap3D, render
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -95,6 +100,44 @@ def main() -> int:
             torch.cuda.synchronize()
             wall = time.time() - t0
         report(f"{name}, {len(grid)} queries", prof, wall)
+
+    if isinstance(m, GPisMap3D):
+        pose = frames[-1][1]
+        o, d, _ = render.camera_rays(
+            pose[:3], pose[3:12].reshape(3, 3, order="F"), m.cam, 2)
+        cfg = render.config_from_mapper(m)
+    else:
+        o, d, _ = torch_scenes.beams(torch_scenes.floor_plan(),
+                                     torch_scenes.floor_trajectory(28))
+        cfg = render.config_from_mapper(m, n_steps=96)
+    o, d = (torch.as_tensor(a, device="cuda") for a in (o, d))
+
+    def correct_backward(out):
+        idx = torch.nonzero(out["hit"]).reshape(-1)
+        correction_backward(render, m, o[idx], d[idx], out["t_hat"][idx],
+                            cfg)
+        return len(idx)
+
+    # warm-up: the backward's first use of its kernels
+    correct_backward(render.sphere_trace(m.store, m.grid, o, d, cfg,
+                                         m._get_factors()))
+    m._factors = None
+    with profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = render.sphere_trace(m.store, m.grid, o, d, cfg,
+                                  m._get_factors())
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    report(f"render march, {len(o)} rays x {cfg.n_steps} steps (factor "
+           f"cache fill included)", prof, wall)
+    with profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        n_hit = correct_backward(out)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    report(f"render correction + backward, {n_hit} hit rays", prof, wall)
     return 0
 
 
