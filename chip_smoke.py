@@ -36,6 +36,27 @@ production shapes:
   runtime.checkpoint; the 3D map saved and loaded into a fresh
   GPisMap3D(); and the mex front end (mex_compat) on the card.
 
+  The card's branches and the other modes (phases 12-15). On the card
+  the 3D update takes the compacted obs fit and sweep by default, so
+  phase 7 runs them, and its GPU-vs-CPU check holds them against the
+  CPU's dense path; test() takes the window unless GPISMAP_NBR_TABLE=1,
+  and the blocked sweep runs only with GPISMAP_OBS_BLOCKED=1.
+  Phase 12: frame_compute_3d on each of the 40 frames three ways (the
+  dense sweep, the cell-blocked sweep, the compacted fit and sweep):
+  insert_ok equal, compacted equal to dense to the last bit; the blocked
+  sweep equal to the gather within F64_TOL when both run in float64, its
+  float32 normals and noises closer to the gather's than the gather's
+  own float32 error, its posteriors within KERNEL_TOL of the gather's,
+  its positions and median differences within the JAX package's bounds,
+  every probe within one cell of its pixel's cell; 12b, the 3D update
+  with each sweep (the compacted map equal to the dense map to the last
+  bit). Phase 13: test() through the candidate table
+  (GPISMAP_NBR_TABLE=1) vs the window on the maps of phases 4 and 7,
+  equal to the last bit, no overflow. Phase 14: map_test(two_phase)
+  vs single phase on both maps, equal to the last bit. Phase 15: 2D
+  strict_reeval=True and 3D "strict" and "snapshot" on the same frames,
+  each held to the default mode's mapped-share and SDF-sign floors.
+
 Usage: python3 chip_smoke.py    (from the repository root; needs CUDA)
 
 The last line of standard output is
@@ -44,8 +65,9 @@ the line before it is the card's name and power limit, and the one
 before that lists each kernel at each shape of the two paths with its
 launches on the update->test path (`launches`) and on each path apart
 (`launches_by_path`: update->test, the gated render march or
-render_depth, the correction with its backward; each counted from 0 just
-before that path ran), its error against the plain
+render_depth, the correction with its backward, and the paths of phases
+12-15; each counted from 0 just before that path ran), its error against
+the plain
 version, its time, the plain version's, the bound (the least time the
 card could take for the same work) and the time of the PyTorch call that
 computes the same function, where there is one. Any failed phase exits non-zero
@@ -501,6 +523,11 @@ def run_3d(card, torch_scenes, chol_ops, tile_ops, cluster, convert):
     if m._factors is None:
         fail(f"test() did not use the factor cache ({n_live} live cells, "
              f"bound {m.cap.test_active_cells})")
+    if not m._obs_compact() or m._obs_blocked() or m._nbrs is not None:
+        fail("the 3D map did not take the card's defaults (the compacted "
+             "obs fit and sweep, test() through the window)")
+    print("  the card's defaults: the compacted obs fit and sweep, test() "
+          "through the window")
     if res.shape != (len(volume), 8) or not np.isfinite(res).all():
         fail(f"test() output not finite of shape {(len(volume), 8)}")
     mapped = float((res[:, 4] < 1.0 + m.p.map_noise_param).mean())
@@ -986,6 +1013,453 @@ def run_checkpoint_mex(card, m, frames2d, frames3d, qr, grad_const,
         fail("mex reset left a map behind")
 
 
+def event_ms(fn):
+    """(fn(), the device ms between CUDA events recorded around it)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+class Env:
+    """Sets environment variables (None: unset) for a with block and puts
+    the old values back after it."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    def __enter__(self):
+        self.old = {k: os.environ.get(k) for k in self.values}
+        for k, v in self.values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+# the branch settings of the 3D update: the dense sweep, the cell-blocked
+# sweep (compaction forced off, the blocked sweep forced on), and the
+# card's default (the compacted fit and sweep)
+SWEEPS = (("dense", dict(GPISMAP_OBS_COMPACT="0", GPISMAP_OBS_BLOCKED="0")),
+          ("blocked", dict(GPISMAP_OBS_COMPACT="0", GPISMAP_OBS_BLOCKED="1")),
+          ("compacted", dict(GPISMAP_OBS_COMPACT=None,
+                             GPISMAP_OBS_BLOCKED=None)))
+# the blocked sweep against the gather, both in float64: one function
+F64_TOL = 1e-9
+
+
+def field_agreement(a: np.ndarray, b: np.ndarray, var_col: int,
+                    unmapped: float) -> str:
+    """Two test() outputs on the same queries: the share whose mapped
+    status (var_f < 1 + map_noise) agrees, and |f_a - f_b| over the
+    points both map."""
+    ma, mb = a[:, var_col] < unmapped, b[:, var_col] < unmapped
+    both = ma & mb
+    df = np.abs(a[both, 0] - b[both, 0])
+    return (f"mapped agreement {float((ma == mb).mean()):.6f}, |f| diff "
+            f"over the {int(both.sum())} points both map: median "
+            f"{float(np.median(df)) if both.any() else np.nan:.3g}, max "
+            f"{float(df.max()) if both.any() else np.nan:.3g}")
+
+
+def run_obs_branches(card, frames, volume, torch_scenes, tile_ops, chol_ops):
+    """Phase 12: the 3D obs branches on each of the 40 frames,
+    frame_compute_3d three ways (dense, blocked, compacted); then 12b,
+    the 3D update with each sweep. Returns the launches of each update
+    (update->test) and the compacted (default) map's test() of the
+    volume."""
+    from gpismap_tpu_torch import GPisMap3D
+    from gpismap_tpu_torch.models import mapper3d, obsgp
+
+    t_phase = time.time()
+    m = GPisMap3D()
+    m.set_camera(1, "bigbird")
+    cam, mp, op, dev = m.cam, m.p, m.op, m.device
+    row_idx, col_idx = mapper3d._grid_ownership(cam, mp, op)
+    a_of_row = np.full(cam.height // mp.obs_skip, -1)
+    for a, rows in enumerate(row_idx):
+        a_of_row[rows[rows >= 0]] = a
+    b_of_col = np.full(cam.width // mp.obs_skip, -1)
+    for b, cols in enumerate(col_idx):
+        b_of_col[cols[cols >= 0]] = b
+    a_of_row = torch.as_tensor(a_of_row, device=dev)
+    b_of_col = torch.as_tensor(b_of_col, device=dev)
+    fields = ("pos", "grad", "noise", "grad_noise")
+    ms = {k: [] for k in ("frame dense", "frame blocked", "frame compacted",
+                          "sweep dense", "sweep blocked", "sweep compacted")}
+    nvs, cells, caps = [], [], set()
+    bad = []
+    worst_b = {k: 0.0 for k in fields}
+    worst_med = {k: 0.0 for k in fields[1:]}
+    worst_post = {k: 0.0 for k in ("gate var", "probe mean", "probe var")}
+    worst64 = {k: 0.0 for k in fields}
+    # per field: the largest float32 blocked-vs-gather difference over the
+    # gather's own largest float32 error (against float64), worst frame;
+    # and that error's largest value
+    worst_ratio = {k: 0.0 for k in fields[1:]}
+    worst_own = {k: 0.0 for k in fields[1:]}
+    n_ok = 0
+    hop = 0
+    for depth, pose in frames:
+        nv, _ = m._host_gate(depth)
+        nv_cap, c_cap = m._obs_nv_cap(nv), m._obs_cell_cap(m._last_valid_mask)
+        if nv_cap is None or c_cap is None:
+            fail("the card's default did not compact the 3D obs sweep")
+        caps.add((nv_cap, c_cap))
+        tr = pose[:3]
+        rot = pose[3:12].reshape(3, 3, order="F")
+        args = (torch.as_tensor(depth, device=dev),
+                torch.as_tensor(tr, device=dev),
+                torch.as_tensor(rot, device=dev), cam, mp, op,
+                m._obs_chunk)
+        kws = dict(dense=dict(blocked=False), blocked=dict(blocked=True),
+                   compacted=dict(nv_cap=nv_cap, obs_c_cap=c_cap))
+        out = {}
+        for name, kw in kws.items():
+            out[name], t = event_ms(lambda: mapper3d.frame_compute_3d(
+                *args, **kw))
+            ms[f"frame {name}"].append(t)
+            prep, obs, _ = out[name]
+            sweep_kw = {k: v for k, v in kw.items() if k != "obs_c_cap"}
+            _, t = event_ms(lambda: mapper3d.newmeas_3d(
+                obs, prep, args[2], mp, op, m._obs_chunk, cam=cam,
+                **sweep_kw))
+            ms[f"sweep {name}"].append(t)
+        prep, obs_d, nd = out["dense"]
+        _, obs_c, nc = out["compacted"]
+        nb = out["blocked"][2]
+        # the same frame in float64 through the gather and the blocked
+        # sweep: they compute one function, and the float32 gather's own
+        # rounding is the yardstick of the float32 blocked sweep's
+        args64 = tuple(a.double() for a in args[:3]) + args[3:]
+        d64 = mapper3d.frame_compute_3d(*args64, blocked=False)[2]
+        b64 = mapper3d.frame_compute_3d(*args64, blocked=True)[2]
+        ok64 = d64.insert_ok
+        if not torch.equal(b64.insert_ok, ok64):
+            bad.append(f"float64: insert_ok differs on "
+                       f"{int((b64.insert_ok != ok64).sum())} pixels")
+            continue
+        both = ok64 & nd.insert_ok
+        for k in fields:
+            if ok64.any():
+                worst64[k] = max(worst64[k], float(
+                    (getattr(b64, k) - getattr(d64, k))[ok64].abs().max()))
+            if k in worst_ratio and both.any():
+                exact = getattr(d64, k)[both]
+                own = float((getattr(nd, k)[both].double() - exact)
+                            .abs().max())
+                gap = float((getattr(nb, k)[both] - getattr(nd, k)[both])
+                            .abs().max())
+                worst_own[k] = max(worst_own[k], own)
+                worst_ratio[k] = max(worst_ratio[k],
+                                     gap / own if own else (np.inf if gap else 0.0))
+        nvs.append(nv)
+        trained = obs_d.trained
+        cells.append(int(trained.sum()))
+        ok = nd.insert_ok
+        n_ok += int(ok.sum())
+        if not (torch.equal(nb.insert_ok, ok) and torch.equal(nc.insert_ok,
+                                                              ok)):
+            bad.append(f"insert_ok differs (blocked "
+                       f"{int((nb.insert_ok != ok).sum())}, compacted "
+                       f"{int((nc.insert_ok != ok).sum())} pixels)")
+            continue
+        if not (torch.equal(obs_c.trained, trained)
+                and torch.equal(obs_c.alpha[trained], obs_d.alpha[trained])
+                and torch.equal(obs_c.linv[trained], obs_d.linv[trained])):
+            bad.append("compacted fit differs from the full fit: alpha "
+                       f"{float((obs_c.alpha - obs_d.alpha)[trained].abs().max()):.3g}"
+                       f", L^-1 {float((obs_c.linv - obs_d.linv)[trained].abs().max()):.3g}")
+        for k in fields:
+            a, b = getattr(nc, k)[ok], getattr(nd, k)[ok]
+            if not torch.equal(a, b):
+                bad.append(f"compacted {k} differs from dense: max "
+                           f"{float((a - b).abs().max()):.3g} on "
+                           f"{int((a != b).reshape(len(a), -1).any(-1).sum())} "
+                           f"pixels")
+            diff = (getattr(nb, k)[ok] - b).abs()
+            if diff.numel():
+                worst_b[k] = max(worst_b[k], float(diff.max()))
+                if k in worst_med:
+                    worst_med[k] = max(worst_med[k], float(diff.median()))
+        # the blocked evaluator's own outputs, the posteriors, against the
+        # gather's at the valid pixels: f32 rounding of the products'
+        # summation order (the normals above are their finite
+        # differences over delx, which multiply that rounding by ~3e4)
+        vu0, ppos, pz, pvu = mapper3d.probe_queries(prep, mp)
+        v = prep.valid
+        post_b = mapper3d._blocked_obs_sweep(obs_d, vu0, pvu, cam, mp, op)
+        _, var0_g = obsgp.obsgp2d_test(obs_d, vu0.reshape(-1, 2), op,
+                                       m._obs_chunk)
+        pr_g, pv_g = obsgp.obsgp2d_test(obs_d, pvu.reshape(-1, 2), op,
+                                        m._obs_chunk)
+        post_g = (var0_g.reshape(v.shape), pr_g.reshape(pvu.shape[:-1]),
+                  pv_g.reshape(pvu.shape[:-1]))
+        for k, a, b in zip(worst_post, post_b, post_g):
+            a, b = a[v], b[v]
+            sent = b >= 1e6
+            if not torch.equal(a >= 1e6, sent):
+                bad.append(f"blocked {k}: the sentinel differs")
+                continue
+            if (~sent).any():
+                worst_post[k] = max(worst_post[k], float(
+                    (a - b)[~sent].abs().max()) / max(
+                        1.0, float(b[~sent].abs().max())))
+        # roff=1 coverage: each valid pixel's probes within one cell of
+        # its pixel's static owning cell
+        a_t = torch.clamp(torch.searchsorted(
+            obs_d.val_i[1:].contiguous(), (ppos[..., 1] / pz).contiguous(),
+            right=True), 0, len(obs_d.val_i) - 2)
+        b_t = torch.clamp(torch.searchsorted(
+            obs_d.val_j[1:].contiguous(), (ppos[..., 0] / pz).contiguous(),
+            right=True), 0, len(obs_d.val_j) - 2)
+        da = (a_t - a_of_row[:, None, None]).abs()[prep.valid]
+        db = (b_t - b_of_col[None, :, None]).abs()[prep.valid]
+        hop = max(hop, int(da.max()), int(db.max()))
+    mean = {k: float(np.mean(v)) for k, v in ms.items()}
+    print(f"phase 12: the 3D obs branches on {len(frames)} frames of "
+          f"{cam.width}x{cam.height} ({len(nvs)} evaluated): valid pixels nv min "
+          f"{min(nvs)} median {int(np.median(nvs))} max {max(nvs)} of "
+          f"{prep.valid.numel()}; nonempty obs cells min {min(cells)} median "
+          f"{int(np.median(cells))} max {max(cells)} of {trained.numel()}; "
+          f"(nv_cap, c_cap) buckets {sorted(caps)}; {n_ok} insertable "
+          f"pixels in all; CUDA-event ms per frame, frame_compute_3d / "
+          f"newmeas_3d alone: "
+          + ", ".join(f"{k} {mean['frame ' + k]:.3f} / "
+                      f"{mean['sweep ' + k]:.3f}"
+                      for k in ("dense", "blocked", "compacted"))
+          + f" ({card})", flush=True)
+    print(f"  compacted vs dense: {'equal to the last bit' if not bad else bad[:4]}"
+          f"; blocked vs gather posteriors at the valid pixels, max abs "
+          f"diff relative to the largest magnitude (at least 1) "
+          + " ".join(f"{k} {v:.3g}" for k, v in worst_post.items())
+          + "; blocked vs dense over the insertable pixels, max abs diff "
+          + " ".join(f"{k} {v:.3g}" for k, v in worst_b.items())
+          + ", largest per-frame median " + " ".join(
+              f"{k} {v:.3g}" for k, v in worst_med.items())
+          + f"; probes at most {hop} cell(s) from their pixel's cell",
+          flush=True)
+    print("  in float64, blocked vs gather over the insertable pixels, max "
+          "abs diff " + " ".join(f"{k} {v:.3g}" for k, v in worst64.items())
+          + f" (gate {F64_TOL:g}); the float32 gather's own largest error "
+          "against float64 " + " ".join(f"{k} {v:.3g}"
+                                        for k, v in worst_own.items())
+          + "; float32 blocked-vs-gather max over that error, worst frame "
+          + " ".join(f"{k} {v:.3g}" for k, v in worst_ratio.items())
+          + " (gate < 1)", flush=True)
+    if bad:
+        fail(f"phase 12: {bad[:4]}")
+    # the blocked sweep is the gather's function (float64), its float32
+    # normals and noises differ from the gather's by less than the
+    # gather's own float32 error (finite differences over delx of the
+    # posteriors, which the products' summation order rounds), and the
+    # JAX package's bounds (tests/test_obsgp.py) hold on its posteriors,
+    # positions and medians
+    if max(worst64.values()) > F64_TOL or max(worst_ratio.values()) >= 1 \
+            or max(worst_post.values()) > KERNEL_TOL \
+            or worst_b["pos"] > 1e-6 or max(worst_med.values()) >= 1e-4 \
+            or hop > 1:
+        fail(f"phase 12: the blocked sweep is off the gather's bounds: "
+             f"float64 {worst64}, float32 over the gather's own error "
+             f"{worst_ratio}, posteriors {worst_post}, {worst_b}, medians "
+             f"{worst_med}, hop {hop}")
+    print(f"  phase 12 wall {time.time() - t_phase:.1f} s", flush=True)
+
+    # ---- 12b: the 3D update with each sweep ----
+    t_phase = time.time()
+    res, maps, n_upd = {}, {}, {}
+    for name, env in SWEEPS:
+        with Env(**env):
+            mm = GPisMap3D()
+            mm.set_camera(1, "bigbird")
+            counts(tile_ops, chol_ops, reset=True)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            mm.update_batch(frames)
+            torch.cuda.synchronize()
+            t_upd = time.time() - t0
+            t0 = time.time()
+            res[name] = mm.test(volume)
+            t_test = time.time() - t0
+            n_upd[name] = np.asarray(counts(tile_ops, chol_ops))
+        maps[name] = mm
+        print(f"phase 12b: 3D update with the {name} sweep: "
+              f"{len(frames) / t_upd:.2f} frames/s, {mm.num_nodes} nodes; "
+              f"first test {len(volume) / t_test:.0f} queries/s; launches "
+              f"tile/chol/linv {n_upd[name][0]}/{n_upd[name][1]}/"
+              f"{n_upd[name][2]} ({card})", flush=True)
+    unmapped = 1.0 + maps["dense"].p.map_noise_param
+    same = (np.array_equal(res["compacted"], res["dense"])
+            and maps["compacted"].num_nodes == maps["dense"].num_nodes)
+    print(f"  compacted map vs dense map: test() on the volume "
+          f"{'equal to the last bit' if same else 'DIFFERS'}; blocked map "
+          f"vs dense map: "
+          + field_agreement(res["blocked"], res["dense"], 4, unmapped),
+          flush=True)
+    if not same:
+        fail("the compacted 3D map differs from the dense map")
+    mapped = float((res["blocked"][:, 4] < unmapped).mean())
+    if mapped < MAPPED_FLOOR_3D:
+        fail(f"the blocked-sweep map's mapped share {mapped}")
+    check_surface(maps["blocked"], torch_scenes)
+    print(f"  phase 12b wall {time.time() - t_phase:.1f} s", flush=True)
+    return n_upd, res["compacted"]
+
+
+def run_table(card, maps, tile_ops, chol_ops):
+    """Phase 13: test() through the candidate table vs the window, on
+    phases 4's and 7's maps. Returns the table test's launches per map."""
+    t_phase = time.time()
+    n_tab = {}
+    for label, m, q in maps:
+        m.test(q)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        r_win = m.test(q)
+        t_win = time.time() - t0
+        if m._nbrs is not None:
+            fail(f"{label}: the card's default built a candidate table")
+        with Env(GPISMAP_NBR_TABLE="1"):
+            _, t_build = event_ms(m._build_nbrs)
+            if m._nbrs is None:
+                fail(f"{label}: GPISMAP_NBR_TABLE=1 built no table")
+            m.test(q)
+            counts(tile_ops, chol_ops, reset=True)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            r_tab = m.test(q)
+            t_tab = time.time() - t0
+            n_tab[label] = np.asarray(counts(tile_ops, chol_ops))
+        ovf = int(m._nbrs.n_overflow)
+        same = np.array_equal(r_tab, r_win)
+        print(f"phase 13: {label} test() through the "
+              f"{'dense' if m._nbr_dense else 'sorted-key'} candidate table "
+              f"{tuple(m._nbrs.packed.shape)} vs the window: "
+              f"{'equal to the last bit' if same else 'DIFFERS'}; "
+              f"nbr_overflow {ovf}; table build {t_build:.3f} ms (CUDA "
+              f"events); warm test {len(q) / t_tab:.0f} queries/s with the "
+              f"table, {len(q) / t_win:.0f} through the window; the first "
+              f"test after a retrain {t_build + 1e3 * t_tab:.3f} ms with the "
+              f"table (its build included), {1e3 * t_win:.3f} through the "
+              f"window; launches "
+              f"tile/chol/linv {n_tab[label][0]}/{n_tab[label][1]}/"
+              f"{n_tab[label][2]} ({card})", flush=True)
+        if not same or ovf or m.stats.get("nbr_overflow", 0):
+            fail(f"{label}: the table's test() differs from the window's "
+                 f"or overflowed ({ovf})")
+    print(f"  phase 13 wall {time.time() - t_phase:.1f} s", flush=True)
+    return n_tab
+
+
+def run_two_phase(card, maps, cluster, tile_ops, chol_ops):
+    """Phase 14: map_test(two_phase=True) vs single-phase on phases 4's
+    and 7's maps, through the window and the table. Returns the
+    two-phase call's launches per map."""
+    t_phase = time.time()
+    n_two = {}
+    for label, m, q in maps:
+        qt = torch.as_tensor(q, device=m.device)
+        kw = dict(m._test_kwargs(), factors=m._get_factors())
+        if m._nbrs is None:
+            fail(f"{label}: phase 13 left no candidate table")
+        tab = dict(nbrs=m._nbrs, nbr_dense=m._nbr_dense)
+        one = cluster.map_test(m.store, m.grid, qt, **kw)
+        counts(tile_ops, chol_ops, reset=True)
+        two = cluster.map_test(m.store, m.grid, qt, two_phase=True, **kw)
+        torch.cuda.synchronize()
+        n_two[label] = np.asarray(counts(tile_ops, chol_ops))
+        others = (two, cluster.map_test(m.store, m.grid, qt, **tab, **kw),
+                  cluster.map_test(m.store, m.grid, qt, two_phase=True,
+                                   **tab, **kw))
+        same = all(torch.equal(a, b) for o in others
+                   for a, b in zip(one[:4], o[:4]))
+        ms1 = cuda_ms(lambda: cluster.map_test(m.store, m.grid, qt, **kw), 3)
+        ms2 = cuda_ms(lambda: cluster.map_test(m.store, m.grid, qt,
+                                               two_phase=True, **kw), 3)
+        print(f"phase 14: {label} map_test on {len(q)} queries, two-phase vs "
+              f"single-phase (window and table): "
+              f"{'equal to the last bit' if same else 'DIFFERS'}; n_phase2 "
+              f"{int(two[4].n_phase2)}; pairs {int(one[4].n_pairs)} in one "
+              f"phase, {int(two[4].n_pairs)} in two; tile launches per call "
+              f"{n_two[label][0]} (single phase: 1); CUDA-event ms per call "
+              f"{ms1:.3f} single, {ms2:.3f} two-phase ({card})", flush=True)
+        if not same:
+            fail(f"{label}: two-phase differs from single-phase")
+        if n_two[label][0] < 1:
+            fail(f"{label}: two-phase launched no tile kernel")
+    print(f"  phase 14 wall {time.time() - t_phase:.1f} s", flush=True)
+    return n_two
+
+
+def run_modes(card, frames2d, grid, gazebo, frames3d, volume, res3d,
+              torch_scenes, tile_ops, chol_ops):
+    """Phase 15: 2D strict_reeval=True on the 2D frames, 3D "strict" and
+    "snapshot" on the 40 frames, each against the default mode's map (in
+    3D phase 12b's, whose test() of the volume is res3d). Returns each
+    mode's update->test launches."""
+    from gpismap_tpu_torch import GPisMap2D, GPisMap3D
+
+    t_phase = time.time()
+    n_mode = {}
+    runs = [("2D default", None, GPisMap2D, {}, frames2d, grid),
+            ("2D strict_reeval=True", "strict_2d", GPisMap2D,
+             dict(strict_reeval=True), frames2d, grid),
+            ("3D reeval_mode='strict'", "strict_3d", GPisMap3D,
+             dict(reeval_mode="strict"), frames3d, volume),
+            ("3D reeval_mode='snapshot'", "snapshot_3d", GPisMap3D,
+             dict(reeval_mode="snapshot"), frames3d, volume)]
+    default2d = None
+    for label, key, cls, kw, frames, q in runs:
+        m = cls(**kw)
+        if m.dim == 3:
+            m.set_camera(1, "bigbird")
+        counts(tile_ops, chol_ops, reset=True)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        m.update_batch(frames)
+        torch.cuda.synchronize()
+        t_upd = time.time() - t0
+        res = m.test(q)
+        n = np.asarray(counts(tile_ops, chol_ops))
+        var_col = 3 if m.dim == 2 else 4
+        unmapped = 1.0 + m.p.map_noise_param
+        mapped = float((res[:, var_col] < unmapped).mean())
+        if m.dim == 2 and key is None:
+            default2d = res
+        ref = default2d if m.dim == 2 else res3d
+        print(f"phase 15: {label}: {len(frames) / t_upd:.2f} update "
+              f"frames/s over {len(frames)} frames, {m.num_nodes} nodes; "
+              f"mapped share {mapped:.4f}; vs the default mode's map: "
+              + field_agreement(res, ref, var_col, unmapped)
+              + f"; launches tile/chol/linv {n[0]}/{n[1]}/{n[2]} ({card})",
+              flush=True)
+        if key is None:
+            continue
+        n_mode[key] = n
+        floor = (0.2 if gazebo else MAPPED_FLOOR) if m.dim == 2 \
+            else MAPPED_FLOOR_3D
+        if mapped < floor or not np.isfinite(res).all():
+            fail(f"{label}: mapped share {mapped} (floor {floor})")
+        if n.min() < 1:
+            fail(f"{label}: launched tile/chol/linv {n} times")
+        if m.dim == 3:
+            check_surface(m, torch_scenes)
+        elif not gazebo:
+            check_walls(m, torch_scenes)
+    print(f"  phase 15 wall {time.time() - t_phase:.1f} s", flush=True)
+    return n_mode
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU",
@@ -1115,6 +1589,11 @@ def main() -> int:
     if m._factors is None:
         fail(f"test() did not use the factor cache ({n_live} live cells, "
              f"bound {m.cap.test_active_cells})")
+    if m._nbrs is not None:
+        fail("the 2D map's test() built the candidate table, which is "
+             "opt-in (GPISMAP_NBR_TABLE=1)")
+    print("  the card's default: test() through the window (the candidate "
+          "table is opt-in)")
     if res.shape != (len(grid), 6) or not np.isfinite(res).all():
         fail(f"test() output not finite of shape {(len(grid), 6)}")
     mapped = float((res[:, 3] < 1.0 + m.p.map_noise_param).mean())
@@ -1229,18 +1708,36 @@ def main() -> int:
                            m3._test_kwargs()["grad_const"], torch_scenes,
                            checkpoint, tmp)
 
+    # ---- phases 12-15: the card's branches and the other modes ----
+    volume = torch_scenes.volume_grid()
+    n12, res3d = run_obs_branches(card, r3["frames"], volume, torch_scenes,
+                                  tile_ops, chol_ops)
+    both = (("2D", m, grid), ("3D", m3, volume))
+    n13 = run_table(card, both, tile_ops, chol_ops)
+    n14 = run_two_phase(card, both, cluster, tile_ops, chol_ops)
+    n15 = run_modes(card, frames, grid, gazebo, r3["frames"], volume,
+                    res3d, torch_scenes, tile_ops, chol_ops)
+
     t2 = "gpismap_tpu/ops/pallas_tile.py:118"
     pc = "gpismap_tpu/ops/pallas_chol.py"
     h3 = r3["headline"]
 
-    def paths(update_test, render_paths, i):
+    def paths(update_test, other_paths, i):
         """Launches of kernel i (0 tile, 1 chol, 2 linv) on each path, the
         update->test path first."""
         return dict([("update_test", int(update_test))]
-                    + [(k, int(v[i])) for k, v in render_paths])
+                    + [(k, int(v[i])) for k, v in other_paths])
 
-    r2d = (("render_2d_march", m9), ("render_2d_correction_backward", c9))
-    r3d = (("render_3d_depth", m10), ("render_3d_correction_backward", c10))
+    r2d = (("render_2d_march", m9), ("render_2d_correction_backward", c9),
+           ("table_test_2d", n13["2D"]), ("two_phase_map_test_2d", n14["2D"]),
+           ("strict_2d_update_test", n15["strict_2d"]))
+    r3d = (("render_3d_depth", m10), ("render_3d_correction_backward", c10),
+           ("obs_dense_3d_update_test", n12["dense"]),
+           ("obs_blocked_3d_update_test", n12["blocked"]),
+           ("obs_compacted_3d_update_test", n12["compacted"]),
+           ("table_test_3d", n13["3D"]), ("two_phase_map_test_3d", n14["3D"]),
+           ("strict_3d_update_test", n15["strict_3d"]),
+           ("snapshot_3d_update_test", n15["snapshot_3d"]))
     kernels = [
         kernel_entry("tile_eval (d=2)", t2, paths(launches, r2d, 0),
                      max(max(err3.values()), max(err4.values())), ms,

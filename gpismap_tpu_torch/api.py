@@ -1,17 +1,25 @@
 """User-facing 2D online GPIS mapper on PyTorch, and the host
 orchestration both mappers share.
 
-Port of gpismap_tpu/api.py:GPisMap2D (the default, non-strict path) and of
-the dimension-free parts of its _MeshMixin and _retrain_store (without the
-mesh). A host orchestrator that drives:
+Port of gpismap_tpu/api.py:GPisMap2D (snapshot and strict re-evaluation)
+and of the dimension-free parts of its _MeshMixin and _retrain_store
+(without the mesh). A host orchestrator that drives:
   * the native spatial index (csrc/gpis_index.cpp) for tree mutations
   * the per-frame tensor stages (models/mapper2d.py) for the GP math
   * the cluster-GP store, the node mirror and the factor cache
     (models/cluster.py) for the retrain and test()
 on one torch device.
+
+With GPISMAP_NBR_TABLE=1, test() finds each query's candidate cells
+through a precomputed candidate table (cluster.NeighborTable), as the
+JAX package does by default on its accelerator; the results are the
+window path's. Unset, the table is off on every device: on the H100 it
+saves no query time and costs its build at the first test() after each
+retrain (PERF.md).
 """
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -33,6 +41,17 @@ def _default_buckets(mcap: int) -> tuple:
     return tuple(b for b in cand if b <= mcap)
 
 
+def _pad_ids(node_ids: np.ndarray):
+    """(node ids padded with -1 to a pow2 length k, valid mask [k])."""
+    n = len(node_ids)
+    k = _next_pow2(max(n, 1))
+    sel = np.full(k, -1, np.int32)
+    sel[:n] = node_ids
+    valid = np.zeros(k, bool)
+    valid[:n] = True
+    return sel, valid
+
+
 def _to_numpy(nt):
     """One host copy of every tensor of a NamedTuple."""
     return type(nt)(*(x.cpu().numpy() for x in nt))
@@ -46,7 +65,9 @@ class _MapperBase:
 
     A subclass sets params, the dimension and the test search box
     through _setup, and supplies update() and the test constants
-    (_test_kwargs)."""
+    (_test_kwargs). The candidate table, when GPISMAP_NBR_TABLE turns
+    it on, is built at the first test() after a change of the map and
+    dropped by every retrain, reset and load."""
 
     def _setup(self, params: MapperParam, obs_param: ObsGPParam,
                tree: TreeParam, cap: CapacityParam, dim: int,
@@ -84,6 +105,8 @@ class _MapperBase:
         self._factors = None    # cached per-cell L^-1 (linv_buf, uniq)
         self._factors_slots = None  # the live slots the cache was filled for
         self._mirror = None     # device node mirror (cluster.NodeMirror)
+        self._nbrs = None       # candidate table (cluster.NeighborTable)
+        self._nbr_dense = False
 
     def _t(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
@@ -101,6 +124,16 @@ class _MapperBase:
                 ids[ins], np.full(ins.sum(), -self.p.fbias, np.float32),
                 nm.noise[ok][ins], nm.grad[ok][ins], nm.grad_noise[ok][ins])
         return int(ins.sum())
+
+    def _apply_reeval(self, node_ids, rv) -> None:
+        """Apply a host copy of a re-evaluation's per-node actions (rows
+        beyond len(node_ids) are padding)."""
+        n = len(node_ids)
+        if n:
+            self.index.apply_reeval(
+                node_ids, rv.action[:n], rv.pos[:n], rv.grad[:n],
+                rv.noise[:n], rv.grad_noise[:n], rv.dbl_pos_sig[:n],
+                rv.dbl_grad_sig[:n], -self.p.fbias)
 
     # ------------------------------------------------------------------
     def _sync_mirror(self) -> None:
@@ -168,6 +201,7 @@ class _MapperBase:
                 fit_ls.append((slots, l))
         self.index.clear_active()
         self._rebuild_grid()
+        self._nbrs = None       # `trained` is baked in: rebuilt at test()
         self._refresh_factors(fit_ls)
 
     def _rebuild_grid(self) -> None:
@@ -238,6 +272,35 @@ class _MapperBase:
         self._factors = (linv_buf, uniq)
 
     # ------------------------------------------------------------------
+    def _use_nbr_table(self) -> bool:
+        """Whether test() takes the candidate table: GPISMAP_NBR_TABLE,
+        read at each test(), 1/on; unset ("auto"), 0 or off leave it off
+        on every device."""
+        return os.environ.get("GPISMAP_NBR_TABLE", "auto") in ("1", "on")
+
+    def _build_nbrs(self) -> None:
+        """Build the candidate table from the live cells (None when no
+        cell is live). The dense variant, one row per grid cell, is taken
+        when the grid has at most 2^18 cells."""
+        self._nbrs = None
+        cells = self.index.all_cluster_cells(cap=self.cap.max_cells * 4)
+        if len(cells) == 0:
+            return
+        centers, _, slots = self.index.cell_info(cells)
+        live = slots >= 0
+        n = int(live.sum())
+        if n == 0:
+            return
+        cpad = _next_pow2(n)
+        cc = np.zeros((cpad, self.dim), np.int32)
+        sl = np.full(cpad, -1, np.int32)
+        cc[:n] = np.floor(centers[live] / self.cell_size).astype(np.int32)
+        sl[:n] = slots[live]
+        self._nbr_dense = (2 * self.grid_half) ** self.dim <= (1 << 18)
+        self._nbrs = cluster.build_neighbor_table(
+            self._t(cc), self._t(sl), self.store.trained, self.grid_half,
+            self._noff, self.cap.nbr_k, self._nbr_dense)
+
     def test(self, x: np.ndarray) -> np.ndarray:
         """Batched SDF query (GPisMap::test, GPisMap.cpp:765-810;
         GPisMap3::test, GPisMap3.cpp:904-949).
@@ -251,11 +314,19 @@ class _MapperBase:
         # pad with a far-away point: padded queries get no candidate cells
         xq = np.full((_next_pow2(nq), self.dim), 1e6, np.float32)
         xq[:nq] = x
+        if not self._use_nbr_table():
+            self._nbrs = None
+        elif self._nbrs is None:
+            self._build_nbrs()
         f, g, vf, vg, info = cluster.map_test(
             self.store, self.grid, self._t(xq), factors=self._get_factors(),
+            nbrs=self._nbrs, nbr_dense=self._nbr_dense,
             **self._test_kwargs())
         out = torch.cat([f[:, None], g, vf[:, None], vg], dim=-1)[:nq].cpu()
         info = _to_numpy(info)
+        # candidates beyond cap.nbr_k a table row could not hold
+        if self._nbrs is not None and int(self._nbrs.n_overflow):
+            self.stats["nbr_overflow"] = int(self._nbrs.n_overflow)
         self.stats["test_eval_pairs"] = int(info.n_pairs)
         self.stats["test_phase2_queries"] = int(info.n_phase2)
         if int(info.n_dropped):
@@ -285,13 +356,21 @@ class GPisMap2D(_MapperBase):
     (mexGPisMap.cpp:99). All GP state and math live on `device`, a CUDA
     card unless the caller asks for the CPU; the spatial index lives on
     the host.
+
+    strict_reeval=True replays the reference's per-cell order of the
+    re-evaluation (GPisMap.cpp:192-229): one reeval_2d per in-view cell,
+    each cell's nodes gathered after the earlier cells' mutations, so a
+    node moved forward is re-evaluated again. The default evaluates one
+    snapshot of the in-view nodes in the frame's single device pass.
     """
 
     def __init__(self, params: MapperParam = MAPPER_2D,
                  obs_param: ObsGPParam = OBSGP_1D,
                  tree: TreeParam = TREE_2D,
                  cap: CapacityParam = CAPACITY_2D,
+                 strict_reeval: bool = False,
                  device: torch.device | str = "cuda"):
+        self.strict_reeval = strict_reeval
         # test search box: map_scale * 4 (GPisMap.cpp:680)
         self._setup(params, obs_param, tree, cap, 2, device,
                     search_half=params.map_scale_param * 4.0)
@@ -321,25 +400,24 @@ class GPisMap2D(_MapperBase):
         rmax = float(rg_p[validh].max())
         g_max = nb // self.op.group_size + 2
 
-        node_ids = self._inview_node_ids(tr, rot, rmax)
-        n = len(node_ids)
-        k = _next_pow2(max(n, 1))
-        sel = np.full(k, -1, np.int32)
-        sel[:n] = node_ids
-        d = self.index.get_nodes(sel)
-        nvalid = np.zeros(k, bool)
-        nvalid[:n] = True
-        rv, nm = mapper2d.frame_update_2d(
-            self._t(th_p), self._t(rg_p), self._t(tr), self._t(rot),
-            self._t(d["pos"]), self._t(d["grad"]), self._t(d["pos_sig"]),
-            self._t(d["grad_sig"]), self._t(nvalid), self.p, self.op,
-            g_max=g_max)
-        rv, nm = _to_numpy(rv), _to_numpy(nm)
-        if n:
-            self.index.apply_reeval(
-                node_ids, rv.action[:n], rv.pos[:n], rv.grad[:n],
-                rv.noise[:n], rv.grad_noise[:n], rv.dbl_pos_sig[:n],
-                rv.dbl_grad_sig[:n], -self.p.fbias)
+        if self.strict_reeval:
+            _, obs, nm = mapper2d.frame_compute_2d(
+                self._t(th_p), self._t(rg_p), self._t(tr), self._t(rot),
+                self.p, self.op, g_max=g_max)
+            for c in self._inview_cells(tr, rot, rmax):
+                self._reeval_apply(obs, self.index.cell_nodes(c), tr, rot)
+            nm = _to_numpy(nm)
+        else:
+            node_ids = self._inview_node_ids(tr, rot, rmax)
+            sel, nvalid = _pad_ids(node_ids)
+            d = self.index.get_nodes(sel)
+            rv, nm = mapper2d.frame_update_2d(
+                self._t(th_p), self._t(rg_p), self._t(tr), self._t(rot),
+                self._t(d["pos"]), self._t(d["grad"]), self._t(d["pos_sig"]),
+                self._t(d["grad_sig"]), self._t(nvalid), self.p, self.op,
+                g_max=g_max)
+            rv, nm = _to_numpy(rv), _to_numpy(nm)
+            self._apply_reeval(node_ids, rv)
         n_new = self._apply_newmeas(nm)
 
         t1 = time.time()
@@ -387,6 +465,19 @@ class GPisMap2D(_MapperBase):
         if len(cells) == 0:
             return np.zeros(0, np.int32)
         return np.concatenate([self.index.cell_nodes(c) for c in cells])
+
+    def _reeval_apply(self, obs, node_ids, tr, rot) -> None:
+        """reeval_2d of one cell's nodes against the frame's observation
+        GP, applied on the host index (the strict mode's step)."""
+        if len(node_ids) == 0:
+            return
+        sel, valid = _pad_ids(node_ids)
+        d = self.index.get_nodes(sel)
+        rv = mapper2d.reeval_2d(
+            obs, self._t(d["pos"]), self._t(d["grad"]),
+            self._t(d["pos_sig"]), self._t(d["grad_sig"]), self._t(valid),
+            self._t(tr), self._t(rot), self.p, self.op)
+        self._apply_reeval(node_ids, _to_numpy(rv))
 
     # ------------------------------------------------------------------
     def _test_kwargs(self) -> dict:

@@ -1,25 +1,34 @@
 """User-facing 3D online GPIS mapper on PyTorch.
 
-Port of gpismap_tpu/api3d.py:GPisMap3D with its default "hybrid"
-re-evaluation (strict per-cell order as one vectorized pass plus mover
-fix-up rounds, models/mapper3d.reeval_hybrid_3d). The command surface is
-the reference's (update/test/reset/setCamera/getAllPoints;
-GPisMap3.h:124-133, mexGPisMap3.cpp:111-157); the host orchestration it
-shares with GPisMap2D lives in api._MapperBase.
+Port of gpismap_tpu/api3d.py:GPisMap3D with its "hybrid", "strict" and
+"snapshot" re-evaluation modes. The command surface is the reference's
+(update/test/reset/setCamera/getAllPoints; GPisMap3.h:124-133,
+mexGPisMap3.cpp:111-157); the host orchestration it shares with
+GPisMap2D lives in api._MapperBase.
+
+On a CUDA device the frame's observation GP is fitted over its nonempty
+cells only and the probe sweep runs over its range-gated pixels only
+(GPISMAP_OBS_COMPACT), as the JAX package does on its accelerator. With
+compaction off, GPISMAP_OBS_BLOCKED=1 selects the cell-blocked sweep,
+which the JAX package takes by default on its accelerator; unset, the
+dense gather runs, 2.3x faster on the H100 (PERF.md). Each gives the
+results of the dense CPU path. Both settings are read here, at each
+update, and passed down to mapper3d.frame_compute_3d.
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from .api import _MapperBase, _next_pow2, _to_numpy
+from .api import _MapperBase, _next_pow2, _pad_ids, _to_numpy
 from .config import (BIGBIRD_CAMS, CAPACITY_3D, MAPPER_3D, OBSGP_2D,
                      TREE_3D, YCB_CAMS, CameraParam, CapacityParam,
                      MapperParam, ObsGPParam, TreeParam)
-from .models import mapper3d
+from .models import mapper3d, obsgp
 
 # queries per chunk of the observation-GP posterior gather on the card:
 # each gathers its cell's [64, 64] L^-1 (16 KiB), so a chunk moves 1 GiB
@@ -37,8 +46,17 @@ class GPisMap3D(_MapperBase):
     CUDA card unless the caller asks for the CPU; the spatial index lives
     on the host.
 
-    reeval_mode: only "hybrid" (the JAX package's default); its
-    "strict", "snapshot" and "fused" modes are not ported.
+    Re-evaluation modes (reeval_mode; None picks "hybrid" when
+    strict_reeval, else "snapshot"):
+      * "hybrid": the reference's strict per-cell order as one vectorized
+        pass plus mover fix-up rounds (mapper3d.reeval_hybrid_3d);
+      * "strict": the host replay of that order, one reeval_3d per kept
+        cell, each cell's nodes gathered after the earlier cells'
+        mutations;
+      * "snapshot": one reeval_3d over a start-of-frame snapshot of every
+        kept cell's nodes.
+    The JAX package's "fused" scan, which "hybrid" replaced, raises
+    NotImplementedError.
     """
 
     def __init__(self, params: MapperParam = MAPPER_3D,
@@ -47,14 +65,19 @@ class GPisMap3D(_MapperBase):
                  cap: CapacityParam = CAPACITY_3D,
                  camera: Optional[CameraParam] = None,
                  compat_reloc: bool = True,
-                 reeval_mode: str = "hybrid",
+                 strict_reeval: bool = True,
+                 reeval_mode: Optional[str] = None,
                  device: torch.device | str = "cuda"):
-        if reeval_mode != "hybrid":
+        if reeval_mode is None:
+            reeval_mode = "hybrid" if strict_reeval else "snapshot"
+        if reeval_mode not in ("strict", "fused", "hybrid", "snapshot"):
+            raise ValueError(f"unknown reeval_mode {reeval_mode!r}")
+        if reeval_mode == "fused":
             raise NotImplementedError(
-                f"reeval_mode={reeval_mode!r}: the port runs the 'hybrid' "
-                f"re-evaluation only; the others wait for ROADMAP.md "
-                f"section 1, item 7 (the non-default modes)")
+                "reeval_mode='fused': 'hybrid' replaced the JAX package's "
+                "fused scan and gives its results; use 'hybrid'")
         self.reeval_mode = reeval_mode
+        self.strict_reeval = reeval_mode != "snapshot"
         self.cam = camera or CameraParam()
         self.compat_reloc = compat_reloc
         # test search box: C_leng * 3 (GPisMap3.cpp:811)
@@ -98,7 +121,9 @@ class GPisMap3D(_MapperBase):
             return
         _, obs, nm = mapper3d.frame_compute_3d(
             self._t(depth), self._t(tr), self._t(rot), self.cam, self.p,
-            self.op, chunk=self._obs_chunk)
+            self.op, chunk=self._obs_chunk, blocked=self._obs_blocked(),
+            nv_cap=self._obs_nv_cap(nv),
+            obs_c_cap=self._obs_cell_cap(self._last_valid_mask))
         nm = _to_numpy(nm)
         self._update_map_points(obs, rmax, tr, rot)
         self._apply_newmeas(nm)
@@ -124,14 +149,61 @@ class GPisMap3D(_MapperBase):
 
     def _host_gate(self, depth: np.ndarray):
         """Host replica of preprocess_3d's range gate
-        (GPisMap3.cpp:176-210): (valid pixel count, max valid depth)."""
+        (GPisMap3.cpp:176-210): (valid pixel count, max valid depth); the
+        mask is kept in self._last_valid_mask for _obs_cell_cap."""
         skip = self.p.obs_skip
         mrow = self.cam.height // skip
         ncol = self.cam.width // skip
         z = depth[::skip, ::skip][:mrow, :ncol].astype(np.float32)
         valid = (z > self.p.min_range) & (z < self.p.max_range)
         rmax = float(np.max(np.where(valid, z, 0.0)))
+        self._last_valid_mask = valid
         return int(valid.sum()), rmax
+
+    def _obs_compact(self) -> bool:
+        """GPISMAP_OBS_COMPACT, read at each call: 0/off and 1/on force
+        the compacted fit and sweep either way; "auto" (unset) means on a
+        CUDA device, off on the CPU."""
+        v = os.environ.get("GPISMAP_OBS_COMPACT", "auto")
+        if v in ("0", "off"):
+            return False
+        return v in ("1", "on") or self.device.type == "cuda"
+
+    def _obs_blocked(self) -> bool:
+        """GPISMAP_OBS_BLOCKED, read at each call: 1/on selects the
+        cell-blocked probe sweep where no nv_cap is given (compaction
+        wins); unset ("auto"), 0 or off keep the dense gather on every
+        device."""
+        return os.environ.get("GPISMAP_OBS_BLOCKED", "auto") in ("1", "on")
+
+    def _obs_nv_cap(self, nv: int):
+        """The pow2 bucket (at least 1024) of the frame's valid-pixel
+        count for the compacted probe sweep (mapper3d.newmeas_3d nv_cap),
+        or None for the dense sweeps."""
+        if not self._obs_compact():
+            return None
+        return max(1024, _next_pow2(nv))
+
+    def _obs_cell_cap(self, valid: np.ndarray):
+        """The pow2 bucket (at least 256) of the number of nonempty obs
+        cells, those whose (overlapping) pixel window holds a range-gated
+        pixel: fit_obsgp2d's `trained`, counted on the host from the
+        static partition and the valid mask by an integral image. None
+        fits every cell."""
+        if not self._obs_compact():
+            return None
+        m, n = valid.shape
+        ii = np.zeros((m + 1, n + 1), np.int64)
+        ii[1:, 1:] = np.cumsum(np.cumsum(valid, 0), 1)
+        gs, ov = self.op.group_size, self.op.overlap
+        _, i0s, i1s, _ = obsgp.partition_1axis(m, gs, ov)
+        _, j0s, j1s, _ = obsgp.partition_1axis(n, gs, ov)
+        i0 = np.asarray(i0s)[:, None]
+        i1 = np.asarray(i1s)[:, None] + 1
+        j0 = np.asarray(j0s)[None, :]
+        j1 = np.asarray(j1s)[None, :] + 1
+        cnt = ii[i1, j1] - ii[i0, j1] - ii[i1, j0] + ii[i0, j0]
+        return max(256, _next_pow2(max(int((cnt > 0).sum()), 1)))
 
     def _cull_cells(self, rmax: float, tr, rot) -> np.ndarray:
         """Range + frustum cell culls (GPisMap3.cpp:276-301)."""
@@ -165,14 +237,35 @@ class GPisMap3D(_MapperBase):
         return cells[keep]
 
     def _update_map_points(self, obs, rmax: float, tr, rot) -> None:
-        """Re-evaluate the nodes of the kept cells and apply the outcome
-        on the host index."""
+        """Re-evaluate the nodes of the kept cells in the mapper's mode
+        and apply the outcome on the host index."""
         kept = self._cull_cells(rmax, tr, rot)
         if len(kept) == 0:
             return
-        disp = self._dispatch_reeval_fused(obs, kept, tr, rot)
-        if disp is not None:
-            self._apply_reeval_fused(*disp)
+        if self.reeval_mode == "strict":
+            for c in kept:
+                self._reeval_apply(obs, self.index.cell_nodes(c), tr, rot)
+        elif self.reeval_mode == "hybrid":
+            disp = self._dispatch_reeval_fused(obs, kept, tr, rot)
+            if disp is not None:
+                self._apply_reeval_fused(*disp)
+        else:
+            self._reeval_apply(
+                obs, np.concatenate([self.index.cell_nodes(c)
+                                     for c in kept]), tr, rot)
+
+    def _reeval_apply(self, obs, node_ids, tr, rot) -> None:
+        """reeval_3d of one node batch, applied on the host index."""
+        if len(node_ids) == 0:
+            return
+        sel, valid = _pad_ids(node_ids)
+        d = self.index.get_nodes(sel)
+        rv = mapper3d.reeval_3d(
+            obs, self._t(d["pos"]), self._t(d["grad"]),
+            self._t(d["pos_sig"]), self._t(d["grad_sig"]), self._t(valid),
+            self._t(tr), self._t(rot), self.p, self.op,
+            chunk=self._obs_chunk, compat=self.compat_reloc)
+        self._apply_reeval(node_ids, _to_numpy(rv))
 
     def _dispatch_reeval_fused(self, obs, kept, tr, rot):
         """Gather the kept cells' nodes and run reeval_hybrid_3d on them.
@@ -180,15 +273,10 @@ class GPisMap3D(_MapperBase):
         the cells hold no nodes."""
         lists = [self.index.cell_nodes(c) for c in kept]
         node_ids = np.concatenate(lists)
-        n = len(node_ids)
-        if n == 0:
+        if len(node_ids) == 0:
             return None
-        k = _next_pow2(n)
-        sel = np.full(k, -1, np.int32)
-        sel[:n] = node_ids
+        sel, valid = _pad_ids(node_ids)
         d = self.index.get_nodes(sel)
-        valid = np.zeros(k, bool)
-        valid[:n] = True
         centers, _, _ = self.index.cell_info(kept)
         cpad = _next_pow2(len(kept), lo=8)
         cc = np.zeros((cpad, 3), np.int32)
@@ -205,14 +293,10 @@ class GPisMap3D(_MapperBase):
 
     def _apply_reeval_fused(self, node_ids, rv, drop) -> None:
         """Host apply of the re-evaluation's final per-node actions."""
-        n = len(node_ids)
         if drop:
             self.stats["reeval_dropped"] = (
                 self.stats.get("reeval_dropped", 0) + int(drop))
-        self.index.apply_reeval(
-            node_ids, rv.action[:n], rv.pos[:n], rv.grad[:n], rv.noise[:n],
-            rv.grad_noise[:n], rv.dbl_pos_sig[:n], rv.dbl_grad_sig[:n],
-            -self.p.fbias)
+        self._apply_reeval(node_ids, rv)
 
     # ------------------------------------------------------------------
     def _test_kwargs(self) -> dict:

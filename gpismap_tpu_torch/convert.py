@@ -35,5 +35,6 @@ def state_from_numpy(index_blob: np.ndarray, store_arrays, frame: int,
     mapper._mirror = None
     mapper._factors = None
     mapper._factors_slots = None
+    mapper._nbrs = None
     mapper._rebuild_grid()
     return mapper

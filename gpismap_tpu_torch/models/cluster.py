@@ -4,7 +4,10 @@ Port of gpismap_tpu/models/cluster.py (the default 2D path): per-cluster
 GP state in flat slot-indexed tensors (the replacement of the
 reference's per-QuadTree OnGPIS registry, quadtree.h:124), and the
 batched SDF query with 3-nearest-cell variance blending
-(GPisMap.cpp:665-763).
+(GPisMap.cpp:665-763). The query finds its candidate cells through the
+dense grid's window or a precomputed candidate table (NeighborTable),
+and evaluates them in one phase or in two (two_phase); the four
+combinations give the same results.
 
 The fit (retrain_cells), the factorization (factorize_slots and the
 query's own) and map_test are differentiable in the store fields, the
@@ -304,6 +307,21 @@ def _cell_args(store: ClusterStore, slot_of: torch.Tensor):
             gf_c.to(torch.float32), cvalid.to(torch.float32))
 
 
+def _window_offsets(noff: int, d: int, device) -> torch.Tensor:
+    """[W, D] offsets of the (2 noff + 1)^D window in ij order."""
+    r = torch.arange(-noff, noff + 1, device=device)
+    return torch.stack(torch.meshgrid(*([r] * d), indexing='ij'),
+                       dim=-1).reshape(-1, d)
+
+
+def _flat_cell(gidx: torch.Tensor, side: int) -> torch.Tensor:
+    """Row-major flat id of grid indices gidx [..., D] (0 <= gidx < side)."""
+    flat = gidx[..., 0]
+    for a in range(1, gidx.shape[-1]):
+        flat = flat * side + gidx[..., a]
+    return flat
+
+
 def _grid_candidates(grid: torch.Tensor, q: torch.Tensor, cell_size: float,
                      grid_half: int, noff: int, search_half: float,
                      trained: torch.Tensor):
@@ -315,18 +333,11 @@ def _grid_candidates(grid: torch.Tensor, q: torch.Tensor, cell_size: float,
     """
     d = q.shape[-1]
     k0 = torch.floor(q / cell_size).to(torch.int64)          # [Q, D]
-    r = torch.arange(-noff, noff + 1, device=q.device)
-    offs = torch.stack(torch.meshgrid(*([r] * d), indexing='ij'),
-                       dim=-1).reshape(-1, d)                # [K, D]
+    offs = _window_offsets(noff, d, q.device)                # [K, D]
     kc = k0[:, None, :] + offs[None, :, :]                   # [Q, K, D]
     centers = (kc.to(q.dtype) + 0.5) * cell_size
     inb = torch.all((kc >= -grid_half) & (kc < grid_half), dim=-1)
-    gidx = kc + grid_half
-    side = 2 * grid_half
-    flat = gidx[..., 0]
-    for a in range(1, d):
-        flat = flat * side + gidx[..., a]
-    flat = torch.where(inb, flat, 0)
+    flat = torch.where(inb, _flat_cell(kc + grid_half, 2 * grid_half), 0)
     slots = torch.where(inb, grid.reshape(-1)[flat], -1)      # [Q, K]
     diff = centers - q[:, None, :]
     sqd = torch.sum(diff * diff, dim=-1)
@@ -336,6 +347,166 @@ def _grid_candidates(grid: torch.Tensor, q: torch.Tensor, cell_size: float,
     inter = torch.all(torch.abs(diff) <= reach, dim=-1)
     ok = (slots >= 0) & inter & trained[torch.clamp(slots, min=0)] & inb
     return slots, sqd, ok
+
+
+class NeighborTable(NamedTuple):
+    """Per-grid-cell candidate lists: one row gather per query in place of
+    the (2 noff + 1)^D window gather of _grid_candidates.
+
+    Entries of a row keep the window-offset enumeration order, so the
+    3-nearest argmin breaks ties as the window path does and the results
+    are the same. `trained` is baked in at build time: rebuild after
+    every retrain.
+
+    keys: [T] sorted flat grid ids (int32-max padded); for the dense
+        variant T is the grid size and keys is arange (row = flat id).
+    packed: [T, K] candidate entries, slot * W2 + window rank (-1 empty),
+        W2 the next pow2 of the window size (2 noff + 1)^D. A candidate's
+        cell coord is the query's cell plus the rank's window offset, the
+        integer sum the build keyed on.
+    n_overflow: [] int32, candidates dropped because a grid cell had more
+        than K trained neighbors (the mapper reports it).
+    noff: the window half-width the table was built with; a lookup with
+        another raises.
+    """
+
+    keys: torch.Tensor
+    packed: torch.Tensor
+    n_overflow: torch.Tensor
+    noff: int
+
+
+def _rank_to_offset(rank: torch.Tensor, noff: int, d: int) -> torch.Tensor:
+    """Window rank (ij enumeration of (-noff..noff)^D) -> offset [..., D]."""
+    side = 2 * noff + 1
+    return torch.stack([(rank // side ** (d - 1 - a)) % side - noff
+                        for a in range(d)], dim=-1)
+
+
+def build_neighbor_table(coords: torch.Tensor, slots: torch.Tensor,
+                         trained: torch.Tensor, grid_half: int, noff: int,
+                         k_cap: int, dense: bool) -> NeighborTable:
+    """Build the candidate table from the live cell list.
+
+    coords: [C, D] integer cell coords (padded rows have slots == -1);
+    slots: [C]; trained: [max_cells] bool. Each live, trained cell is
+    registered into every grid cell g of its window, at the rank of the
+    offset coords - g in the window enumeration: the candidate order of
+    _grid_candidates. dense: one row per grid cell (keys = arange);
+    otherwise one row per grid cell that has a candidate, found by a
+    search of the sorted keys.
+    """
+    c, d = coords.shape
+    dev = coords.device
+    side = 2 * grid_half
+    offs = _window_offsets(noff, d, dev)                     # [W, D]
+    w = offs.shape[0]
+    w2 = 1 << (w - 1).bit_length()
+    if trained.shape[0] * w2 >= 2 ** 31:
+        raise ValueError(f"slot * {w2} overflows the int32 table entries")
+    # cell c lands in g = coords + o at window offset coords - g = -o; the
+    # ij enumeration is symmetric under negation with the index reversed
+    o_rank = (w - 1 - torch.arange(w, device=dev))[None, :]  # [1, W]
+    gidx = coords.long()[:, None, :] + offs[None] + grid_half
+    inb = torch.all((gidx >= 0) & (gidx < side), dim=-1)     # [C, W]
+    gflat = _flat_cell(gidx, side)
+    live = (slots >= 0) & trained[torch.clamp(slots, 0,
+                                              trained.shape[0] - 1).long()]
+    valid = live[:, None] & inb
+
+    big = _INT32_MAX
+    key = torch.where(valid, gflat * w + o_rank, big).reshape(-1)
+    order = torch.argsort(key, stable=True)
+    skey = key[order]
+    sg = torch.where(skey < big, skey // w, big)             # flat ids
+    e_packed = (slots.long()[:, None] * w2 + o_rank).reshape(-1)[order]
+
+    n = c * w
+    if dense:
+        t = side ** d
+        keys = torch.arange(t, device=dev)
+        row = torch.where(sg < big, sg, t)
+    else:
+        t = n
+        u = torch.unique(sg[sg < big])                       # sorted
+        keys = torch.full((t,), big, dtype=torch.int64, device=dev)
+        keys[:len(u)] = u
+        row = torch.where(sg < big,
+                          torch.clamp(torch.searchsorted(keys, sg), 0,
+                                      t - 1), t)
+    counts = torch.bincount(torch.clamp(row, 0, t), minlength=t + 1)[:t]
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(n, device=dev) - starts[torch.clamp(row, 0, t - 1)]
+    keep = (sg < big) & (rank < k_cap)
+    n_overflow = torch.sum((sg < big) & ~keep).to(torch.int32)
+    # dropped entries go to a dummy trailing entry
+    tgt = torch.where(keep, row * k_cap + rank, t * k_cap)
+    ptbl = torch.full((t * k_cap + 1,), -1, dtype=torch.int32, device=dev)
+    ptbl[tgt] = e_packed.to(torch.int32)
+    return NeighborTable(keys=keys.to(torch.int32),
+                         packed=ptbl[:-1].reshape(t, k_cap),
+                         n_overflow=n_overflow, noff=noff)
+
+
+def _table_candidates(nbrs: NeighborTable, q: torch.Tensor, cell_size,
+                      grid_half: int, noff: int, search_half, dense: bool):
+    """_grid_candidates from the candidate table: one row gather per
+    query, the same (slots, sqd, ok) for the present candidates in the
+    same order (trained is baked into the table). Returns [Q, K] each."""
+    if noff != nbrs.noff:
+        raise ValueError(f"candidate table built with noff={nbrs.noff}, "
+                         f"queried with noff={noff}")
+    d = q.shape[-1]
+    side = 2 * grid_half
+    t = nbrs.packed.shape[0]
+    w2 = 1 << ((2 * noff + 1) ** d - 1).bit_length()
+    k0 = torch.floor(q / cell_size).to(torch.int64)           # [Q, D]
+    gidx = k0 + grid_half
+    inb = torch.all((gidx >= 0) & (gidx < side), dim=-1)
+    gflat = torch.where(inb, _flat_cell(gidx, side), 0)
+    if dense:
+        row, hit = gflat, inb
+    else:
+        row = torch.clamp(torch.searchsorted(nbrs.keys,
+                                             gflat.to(torch.int32)), 0, t - 1)
+        hit = inb & (nbrs.keys[row] == gflat)
+    packed = nbrs.packed[row].long()                          # [Q, K]
+    slots = packed >> (w2.bit_length() - 1)
+    coords = k0[:, None, :] + _rank_to_offset(packed & (w2 - 1), noff, d)
+    centers = (coords.to(q.dtype) + 0.5) * cell_size
+    diff = centers - q[:, None, :]
+    sqd = torch.sum(diff * diff, dim=-1)
+    reach = search_half + cell_size * 0.5
+    inter = torch.all(torch.abs(diff) <= reach, dim=-1)
+    ok = (slots >= 0) & inter & hit[:, None]
+    return slots, sqd, ok
+
+
+def _top3(slots: torch.Tensor, sqd: torch.Tensor, ok: torch.Tensor):
+    """The 3 nearest candidates by center distance (GPisMap.cpp:695-698):
+    three masked argmin passes, the first lowest index on ties. Returns
+    (top_slot [Q, 3], top_ok [Q, 3], n_cand [Q])."""
+    n_cand = torch.sum(ok, dim=-1)
+    cur = torch.where(ok, sqd, torch.inf)
+    cols = torch.arange(cur.shape[-1], device=cur.device)
+    tops = []
+    for _ in range(3):
+        i = torch.argmin(cur, dim=-1)
+        tops.append(i)
+        cur = torch.where(cols[None, :] == i[:, None], torch.inf, cur)
+    top_idx = torch.stack(tops, dim=-1)                       # [Q, 3]
+    top_ok = (torch.gather(ok, 1, top_idx)
+              & (torch.arange(3, device=ok.device)[None, :]
+                 < n_cand[:, None]))
+    return torch.gather(slots, 1, top_idx), top_ok, n_cand
+
+
+def _candidates_top3(nbrs: NeighborTable, q: torch.Tensor, cell_size,
+                     grid_half: int, noff: int, search_half, dense: bool):
+    """The table's candidates and their 3-nearest selection: (top_slot,
+    top_ok, n_cand), those of the window path."""
+    return _top3(*_table_candidates(nbrs, q, cell_size, grid_half, noff,
+                                    search_half, dense))
 
 
 class TestInfo(NamedTuple):
@@ -380,14 +551,24 @@ def _eval_pairs(store: ClusterStore, linv_buf: torch.Tensor,
 def map_test(store: ClusterStore, grid: torch.Tensor, q: torch.Tensor,
              cell_size, grid_half: int, noff: int, search_half, scale,
              val_const, grad_const, var_thre, default_var, tile: int,
-             max_cells: int, max_active: int = 512, factors=None):
+             max_cells: int, max_active: int = 512, factors=None,
+             nbrs: NeighborTable = None, nbr_dense: bool = False,
+             two_phase: bool = False):
     """Batched SDF+gradient+variance query (GPisMap.cpp:665-763).
 
     Per query: collect the trained cluster cells intersecting the search
     box, evaluate the nearest cell's GP, and fall back to the up-to-3
     nearest with variance-weighted blending of the best two when the
-    nearest is uncertain. Single phase: all 3Q (query, rank) pairs go
-    through one tile plan.
+    nearest is uncertain.
+
+    nbrs: a candidate table (build_neighbor_table, dense as nbr_dense)
+    in place of the grid's window; same candidates, same order.
+    two_phase: evaluate like the reference's control flow, the rank-0
+    pairs first, then only the uncertain queries' rank-1/2 pairs (the
+    `var > thre` gate, GPisMap.cpp:706-722). The selection below never
+    reads the rank-1/2 results of a confident query, so the outputs are
+    the single phase's; the skipped pairs are not counted as dropped.
+    Otherwise all 3Q (query, rank) pairs go through one tile plan.
 
     factors: optional (linv_buf, uniq) cache from factorize_slots;
     without it, each distinct touched cell (at most max_active; overflow
@@ -395,23 +576,13 @@ def map_test(store: ClusterStore, grid: torch.Tensor, q: torch.Tensor,
     Returns (f [Q], grad [Q, D], varf [Q], vargrad [Q, D], TestInfo).
     """
     nq, d = q.shape
-    slots, sqd, ok = _grid_candidates(grid, q, cell_size, grid_half, noff,
-                                      search_half, store.trained)
-    n_cand = torch.sum(ok, dim=-1)
-    # 3 nearest candidates by center distance (GPisMap.cpp:695-698): three
-    # masked argmin passes (first lowest index on ties)
-    cur = torch.where(ok, sqd, torch.inf)
-    cols = torch.arange(cur.shape[-1], device=q.device)
-    tops = []
-    for _ in range(3):
-        i = torch.argmin(cur, dim=-1)
-        tops.append(i)
-        cur = torch.where(cols[None, :] == i[:, None], torch.inf, cur)
-    top_idx = torch.stack(tops, dim=-1)                       # [Q, 3]
-    top_slot = torch.gather(slots, 1, top_idx)
-    top_ok = (torch.gather(ok, 1, top_idx)
-              & (torch.arange(3, device=q.device)[None, :]
-                 < n_cand[:, None]))
+    if nbrs is not None:
+        top_slot, top_ok, n_cand = _candidates_top3(
+            nbrs, q, cell_size, grid_half, noff, search_half, nbr_dense)
+    else:
+        top_slot, top_ok, n_cand = _top3(*_grid_candidates(
+            grid, q, cell_size, grid_half, noff, search_half,
+            store.trained))
     seg3 = torch.where(top_ok, top_slot, -1).to(torch.int32)  # [Q, 3]
 
     if factors is None:
@@ -424,16 +595,39 @@ def map_test(store: ClusterStore, grid: torch.Tensor, q: torch.Tensor,
         linv_buf, uniq = factors
         slot_of = torch.where(uniq < _INT32_MAX, uniq, -1)
 
-    plan, n_pairs = segmented.plan_tiles_for_slots(
-        seg3.reshape(-1), uniq, max_cells, max_active, tile)
-    n_dropped = (torch.sum(seg3 >= 0) - n_pairs).to(torch.int32)
-    f_p, g_p, vf_p, vg_p = _eval_pairs(store, linv_buf, slot_of, plan,
-                                       3 * nq, q, 3, scale, val_const,
-                                       grad_const)
-    f3 = f_p.reshape(nq, 3)
-    g3 = g_p.reshape(nq, 3, d)
-    vf3 = torch.where(top_ok, vf_p.reshape(nq, 3), torch.inf)
-    vg3 = vg_p.reshape(nq, 3, d)
+    def run(seg, div):
+        """Plan and evaluate the pairs seg [P] (raw slots, -1 none; pair
+        p belongs to query p // div). Slots absent from uniq are dropped
+        and counted. Returns (f, g, vf, vg, n_dropped, n_pairs)."""
+        plan, n_in = segmented.plan_tiles_for_slots(seg, uniq, max_cells,
+                                                    max_active, tile)
+        out = _eval_pairs(store, linv_buf, slot_of, plan, seg.shape[0], q,
+                          div, scale, val_const, grad_const)
+        return out + ((torch.sum(seg >= 0) - n_in).to(torch.int32), n_in)
+
+    if two_phase:
+        f0, g0, vf0, vg0, nd1, np1 = run(seg3[:, 0].contiguous(), 1)
+        # the reference's blend gate (GPisMap.cpp:706): ranks 1-2 are
+        # consulted only when the nearest evaluation is uncertain; an
+        # unevaluated or dropped rank 0 (vf0 == inf) counts as uncertain
+        vf0m = torch.where(top_ok[:, 0], vf0, torch.inf)
+        uncertain = (n_cand >= 2) & ~(vf0m <= var_thre)
+        n_phase2 = torch.sum(uncertain).to(torch.int32)
+        seg12 = torch.where(uncertain[:, None], seg3[:, 1:], -1)
+        f12, g12, vf12, vg12, nd2, np2 = run(seg12.reshape(-1), 2)
+        f3 = torch.cat([f0[:, None], f12.reshape(nq, 2)], dim=1)
+        g3 = torch.cat([g0[:, None], g12.reshape(nq, 2, d)], dim=1)
+        vf3 = torch.cat([vf0[:, None], vf12.reshape(nq, 2)], dim=1)
+        vg3 = torch.cat([vg0[:, None], vg12.reshape(nq, 2, d)], dim=1)
+        n_dropped, n_pairs = nd1 + nd2, (np1 + np2).to(torch.int32)
+    else:
+        f_p, g_p, vf_p, vg_p, n_dropped, n_pairs = run(seg3.reshape(-1), 3)
+        n_phase2 = torch.zeros((), dtype=torch.int32, device=q.device)
+        f3 = f_p.reshape(nq, 3)
+        g3 = g_p.reshape(nq, 3, d)
+        vf3 = vf_p.reshape(nq, 3)
+        vg3 = vg_p.reshape(nq, 3, d)
+    vf3 = torch.where(top_ok, vf3, torch.inf)
 
     # --- selection / blending (GPisMap.cpp:685-758) ---
     # The two smallest variances of the up-to-3 results by stable
@@ -503,8 +697,7 @@ def map_test(store: ClusterStore, grid: torch.Tensor, q: torch.Tensor,
     g_out = torch.where(bad[:, None], 0.0, g_out)
     vg_out = torch.where(bad[:, None], 0.0, vg_out)
     return f_out, g_out, vf_out, vg_out, TestInfo(
-        n_dropped=n_dropped, n_pairs=n_pairs,
-        n_phase2=torch.zeros((), dtype=torch.int32, device=q.device))
+        n_dropped=n_dropped, n_pairs=n_pairs, n_phase2=n_phase2)
 
 
 def build_grid_device(coords: torch.Tensor, slots: torch.Tensor, dim: int,

@@ -248,6 +248,19 @@ def newmeas_2d(obs: obsgp.ObsGP1DState, prep: Preproc2D, rot: torch.Tensor,
                      grad_noise=torch.where(hasg, gnoise_g, 1.0))
 
 
+def frame_compute_2d(theta: torch.Tensor, rng: torch.Tensor,
+                     tr: torch.Tensor, rot: torch.Tensor, mp: MapperParam,
+                     op: ObsGPParam, g_max: int, chunk: int = 1024):
+    """The tree-independent frame stages: preprocess, the obs-GP fit and
+    the new-measurement evaluation (the strict mode re-evaluates the
+    nodes cell by cell after it). Returns (Preproc2D, ObsGP1DState,
+    NewMeas2D)."""
+    prep = preprocess_2d(theta, rng, tr, rot, mp)
+    obs = obsgp.fit_obsgp1d(prep.theta, prep.f, prep.valid, op, g_max=g_max)
+    nm = newmeas_2d(obs, prep, rot, mp, op, chunk)
+    return prep, obs, nm
+
+
 def frame_update_2d(theta: torch.Tensor, rng: torch.Tensor, tr: torch.Tensor,
                     rot: torch.Tensor, node_pos: torch.Tensor,
                     node_grad: torch.Tensor, node_ps: torch.Tensor,
@@ -257,9 +270,7 @@ def frame_update_2d(theta: torch.Tensor, rng: torch.Tensor, tr: torch.Tensor,
     """The whole per-frame device compute: preprocess, obs-GP fit,
     re-evaluation of the host-gathered in-view nodes, and
     new-measurement evaluation. Returns (Reeval2D, NewMeas2D)."""
-    prep = preprocess_2d(theta, rng, tr, rot, mp)
-    obs = obsgp.fit_obsgp1d(prep.theta, prep.f, prep.valid, op, g_max=g_max)
+    _, obs, nm = frame_compute_2d(theta, rng, tr, rot, mp, op, g_max, chunk)
     rv = reeval_2d(obs, node_pos, node_grad, node_ps, node_gs, node_valid,
                    tr, rot, mp, op, chunk)
-    nm = newmeas_2d(obs, prep, rot, mp, op, chunk)
     return rv, nm

@@ -16,15 +16,18 @@ Reference quirks kept (see the JAX module's docstring):
   * the normal-fusion quaternion is built from an UN-normalized axis
     (GPisMap3.cpp:509-529), with an acos clamp against NaN.
 
-Not ported: the "fused" scan (reeval_scan_3d, which "hybrid" replaced),
-the compacted probe sweep (nv_cap), the cell-blocked sweep
-(_blocked_obs_sweep) and the one-vector result packing for the TPU host
-link (pack_frame_results).
+The probe sweep of newmeas_3d has three forms with the same results:
+the dense gather over every pixel, the compacted gather over the
+range-gated pixels (nv_cap), and the cell-blocked products
+(_blocked_obs_sweep). Not ported: the "fused" scan (reeval_scan_3d,
+which "hybrid" replaced) and the one-vector result packing for the TPU
+host link (pack_frame_results).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..config import CameraParam, MapperParam, ObsGPParam
@@ -360,29 +363,142 @@ class NewMeas3D(NamedTuple):
     grad_noise: torch.Tensor  # [P]
 
 
-def newmeas_3d(obs: obsgp.ObsGP2DState, prep: Preproc3D, rot: torch.Tensor,
-               mp: MapperParam, op: ObsGPParam,
-               chunk: int = 4096) -> NewMeas3D:
-    """Batched evalPoints (GPisMap3.cpp:580-696) with the dense gather
-    sweep: the gate and 6 probe posteriors of every pixel. Outputs are
-    flattened in the reference's pixel iteration order (column-major:
-    outer col, inner row; GPisMap3.cpp:586-589) so the host insertion
-    replay keeps its dedup order."""
-    m, n = prep.valid.shape
-    w = 1.0 / 6.0
+def _grid_ownership(cam: CameraParam, mp: MapperParam, op: ObsGPParam):
+    """Static pixel -> cell ownership tables of the (v, u) ray grid: the
+    obs partition's boundaries are camera geometry (GPisMap3.cpp:144-173,
+    ObsGP.cpp:204-265), so each pixel's owning cell is known before any
+    frame. Returns (row_idx [nG0, W0], col_idx [nG1, W1]), -1 padded."""
+    skip = mp.obs_skip
+    m = cam.height // skip
+    n = cam.width // skip
+    v_np = ((np.arange(m) * skip).astype(np.float32)
+            - np.float32(cam.cy)) / np.float32(cam.fy)
+    u_np = ((np.arange(n) * skip).astype(np.float32)
+            - np.float32(cam.cx)) / np.float32(cam.fx)
+    _, _, _, bnd_i = obsgp.partition_1axis(m, op.group_size, op.overlap)
+    _, _, _, bnd_j = obsgp.partition_1axis(n, op.group_size, op.overlap)
+    row_idx = obsgp.ownership_1axis(v_np, v_np[np.asarray(bnd_i)])
+    col_idx = obsgp.ownership_1axis(u_np, u_np[np.asarray(bnd_j)])
+    return row_idx, col_idx
 
+
+def _blocked_obs_sweep(obs: obsgp.ObsGP2DState, vu0: torch.Tensor,
+                       pvu: torch.Tensor, cam: CameraParam,
+                       mp: MapperParam, op: ObsGPParam):
+    """The gate and probe posteriors through the cell-blocked evaluator:
+    the [M, N] pixel grid grouped by static owning cell. A gate query
+    lies in its pixel's cell (roff=0); a probe moves vu by at most about
+    delx/min_range (1 + |vu|), well under one cell span at the
+    production geometry, so roff=1 covers every valid pixel's probes.
+    Returns (var0 [M, N], prinv0 [M, N, 6], pvar [M, N, 6])."""
+    m, n = vu0.shape[:2]
+    dev = vu0.device
+    row_idx, col_idx = _grid_ownership(cam, mp, op)
+    ng0, w0 = row_idx.shape
+    ng1, w1 = col_idx.shape
+    rc = torch.as_tensor(np.clip(row_idx, 0, m - 1), device=dev).long()
+    cc = torch.as_tensor(np.clip(col_idx, 0, n - 1), device=dev).long()
+
+    def group(arr):
+        """[M, N, ...] -> [nG0, nG1, W0*W1, ...] by ownership."""
+        g = arr[rc][:, :, cc]               # [g0, W0, g1, W1, ...]
+        return g.transpose(1, 2).reshape((ng0, ng1, w0 * w1)
+                                         + arr.shape[2:])
+
+    # scatter-back pixel ids; the padding goes to a dummy trailing row
+    own = (row_idx >= 0)[:, None, :, None] & (col_idx >= 0)[None, :, None, :]
+    pid_np = np.where(own, np.clip(row_idx, 0, m - 1)[:, None, :, None] * n
+                      + np.clip(col_idx, 0, n - 1)[None, :, None, :], m * n)
+    pid = torch.as_tensor(pid_np.reshape(-1), device=dev).long()
+
+    def scatter(vals, fill):
+        """[g0, g1, T, ...] -> [M*N, ...] by pixel id."""
+        rest = vals.shape[3:]
+        out = vals.new_full((m * n + 1,) + rest, fill)
+        out[pid] = vals.reshape((-1,) + rest)
+        return out[:-1]
+
+    _, varg = obsgp.obsgp2d_test_blocked(obs, group(vu0), op, roff=0)
+    var0 = scatter(varg, obsgp._PAD_INVALID).reshape(m, n)
+    qp = group(pvu).reshape(ng0, ng1, w0 * w1 * 6, 2)   # 6 probes a pixel
+    mnp, varp = obsgp.obsgp2d_test_blocked(obs, qp, op, roff=1)
+    prinv0 = scatter(mnp.reshape(ng0, ng1, w0 * w1, 6), 0.0)
+    pvar = scatter(varp.reshape(ng0, ng1, w0 * w1, 6), obsgp._PAD_INVALID)
+    return var0, prinv0.reshape(m, n, 6), pvar.reshape(m, n, 6)
+
+
+def probe_queries(prep: Preproc3D, mp: MapperParam):
+    """The obs-GP queries of every pixel: (vu0 [M, N, 2] the pixel's own
+    ray coords, ppos [M, N, 6, 3] its 6 probes (+-delx along each camera
+    axis), pz [M, N, 6] their safe depths, pvu [M, N, 6, 2] their ray
+    coords)."""
+    m, n = prep.valid.shape
     vu0 = torch.stack([prep.v[:, None].expand(m, n),
                        prep.u[None, :].expand(m, n)], -1)
     pert = prep.z.new_tensor(_PROBES) * mp.delx
     ppos = prep.xyz_local[:, :, None, :] + pert[None, None]   # [M,N,6,3]
     pz = _safe_z(ppos[..., 2])
     pvu = torch.stack([ppos[..., 1] / pz, ppos[..., 0] / pz], -1)
+    return vu0, ppos, pz, pvu
 
-    _, var0 = obsgp.obsgp2d_test(obs, vu0.reshape(-1, 2), op, chunk)
-    var0 = var0.reshape(m, n)
-    prinv0, pvar = obsgp.obsgp2d_test(obs, pvu.reshape(-1, 2), op, chunk)
-    prinv0 = prinv0.reshape(m, n, 6)
-    pvar = pvar.reshape(m, n, 6)
+
+def newmeas_3d(obs: obsgp.ObsGP2DState, prep: Preproc3D, rot: torch.Tensor,
+               mp: MapperParam, op: ObsGPParam, chunk: int = 4096,
+               cam: CameraParam = None, blocked: bool = False,
+               nv_cap: int = None) -> NewMeas3D:
+    """Batched evalPoints (GPisMap3.cpp:580-696): the gate and 6 probe
+    posteriors of every pixel. Outputs are flattened in the reference's
+    pixel iteration order (column-major: outer col, inner row;
+    GPisMap3.cpp:586-589) so the host insertion replay keeps its dedup
+    order.
+
+    The posteriors come from one of three sweeps, with the same results:
+      * nv_cap (wins over blocked): the range-gated pixels first, by a
+        stable sort, and the gather evaluator on the [nv_cap, 7] gate and
+        probe queries of the first nv_cap pixels only; the others get the
+        1e6 sentinel, which insert_ok's range gate implies anyway.
+        Callers pass the pow2 bucket of the host-known valid count
+        (api3d._obs_nv_cap); a bucket above the pixel count is clamped
+        to it, so every pixel is then evaluated.
+      * blocked=True (needs cam): the cell-blocked evaluator
+        (_blocked_obs_sweep), equal to the gather up to the products'
+        summation order.
+      * otherwise the gather evaluator over every pixel.
+    """
+    m, n = prep.valid.shape
+    w = 1.0 / 6.0
+    vu0, ppos, pz, pvu = probe_queries(prep, mp)
+
+    if nv_cap is not None:
+        mn_ = m * n
+        nv_cap = min(nv_cap, mn_)
+        vflat = prep.valid.reshape(-1)
+        sel = torch.argsort((~vflat).to(torch.int8), stable=True)[:nv_cap]
+        q = torch.cat([vu0.reshape(mn_, 1, 2)[sel],
+                       pvu.reshape(mn_, 6, 2)[sel]], dim=1)    # [NV, 7, 2]
+        mean_c, var_c = obsgp.obsgp2d_test(obs, q.reshape(-1, 2), op, chunk)
+        mean_c = mean_c.reshape(nv_cap, 7)
+        var_c = var_c.reshape(nv_cap, 7)
+        # gated-out pixels among the selected drop onto a dummy row
+        tgt = torch.where(vflat[sel], sel, mn_)
+
+        def scat(vals, fill):
+            out = vals.new_full((mn_ + 1,) + vals.shape[1:], fill)
+            out[tgt] = vals
+            return out[:-1]
+
+        var0 = scat(var_c[:, 0], obsgp._PAD_INVALID).reshape(m, n)
+        prinv0 = scat(mean_c[:, 1:], 0.0).reshape(m, n, 6)
+        pvar = scat(var_c[:, 1:], obsgp._PAD_INVALID).reshape(m, n, 6)
+    elif blocked:
+        var0, prinv0, pvar = _blocked_obs_sweep(obs, vu0, pvu, cam, mp, op)
+    else:
+        _, var0 = obsgp.obsgp2d_test(obs, vu0.reshape(-1, 2), op, chunk)
+        var0 = var0.reshape(m, n)
+        prinv0, pvar = obsgp.obsgp2d_test(obs, pvu.reshape(-1, 2), op,
+                                          chunk)
+        prinv0 = prinv0.reshape(m, n, 6)
+        pvar = pvar.reshape(m, n, 6)
     gate = prep.valid & (var0 <= mp.obs_var_thre)
     probe_ok = torch.all(pvar <= mp.obs_var_thre, -1)
     pocc = occ_test(1.0 / pz, prinv0, ppos[..., 2] * 30.0)
@@ -423,11 +539,14 @@ def newmeas_3d(obs: obsgp.ObsGP2DState, prep: Preproc3D, rot: torch.Tensor,
 
 def frame_compute_3d(depth: torch.Tensor, tr: torch.Tensor, rot: torch.Tensor,
                      cam: CameraParam, mp: MapperParam, op: ObsGPParam,
-                     chunk: int = 4096):
-    """The tree-independent frame stages: preprocess, ObsGP2D fit over
-    every cell, and the new-measurement evaluation. Returns
-    (Preproc3D, ObsGP2DState, NewMeas3D)."""
+                     chunk: int = 4096, blocked: bool = False,
+                     nv_cap: int = None, obs_c_cap: int = None):
+    """The tree-independent frame stages: preprocess, the ObsGP2D fit
+    (over the obs_c_cap nonempty cells when given, fit_obsgp2d's c_cap)
+    and the new-measurement evaluation (newmeas_3d's nv_cap and blocked).
+    Returns (Preproc3D, ObsGP2DState, NewMeas3D)."""
     prep = preprocess_3d(depth, tr, rot, cam, mp)
-    obs = obsgp.fit_obsgp2d(prep.v, prep.u, prep.zinv, op)
-    nm = newmeas_3d(obs, prep, rot, mp, op, chunk)
+    obs = obsgp.fit_obsgp2d(prep.v, prep.u, prep.zinv, op, c_cap=obs_c_cap)
+    nm = newmeas_3d(obs, prep, rot, mp, op, chunk, cam=cam, blocked=blocked,
+                    nv_cap=nv_cap)
     return prep, obs, nm

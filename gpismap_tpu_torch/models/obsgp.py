@@ -4,14 +4,16 @@ Port of gpismap_tpu/models/obsgp.py: the reference trains one tiny
 OU-kernel GP per overlapping group of scan samples (1D, ObsGP.cpp:85-187)
 or per grid cell of a depth image (2D, ObsGP.cpp:193-463); here all
 groups train as one batched Cholesky with validity masks, and test points
-evaluate by gathering their group's precomputed L^-1. The JAX package's
-compacted fit (c_cap) and cell-blocked evaluator (obsgp2d_test_blocked,
-ownership_1axis) are not ported.
+evaluate by gathering their group's precomputed L^-1 (obsgp2d_test), or,
+for queries grouped by a static owning cell, by dense products against
+the shifted cell grid (obsgp2d_test_blocked). fit_obsgp2d's c_cap fits
+only the nonempty cells.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..config import ObsGPParam
@@ -161,15 +163,23 @@ def partition_1axis(n: int, gs: int, ov: int):
 
 
 def fit_obsgp2d(v_coords: torch.Tensor, u_coords: torch.Tensor,
-                f: torch.Tensor, param: ObsGPParam) -> ObsGP2DState:
-    """Train the partitioned 2D observation GP (ObsGP.cpp:280-342), every
-    cell of the static partition at once (the JAX package's c_cap=None
-    branch).
+                f: torch.Tensor, param: ObsGPParam,
+                c_cap: int = None) -> ObsGP2DState:
+    """Train the partitioned 2D observation GP (ObsGP.cpp:280-342).
 
     v_coords: [NI] row ray coordinates (v = (row - cy)/fy, ascending);
     u_coords: [NJ] column ray coordinates (u = (col - cx)/fx, ascending);
     f: [NI, NJ] regression target (inverse depth 1/z; <= 0 marks invalid
     pixels, ObsGP.cpp:304).
+
+    c_cap: fit only the nonempty cells, at most c_cap of them, nonempty
+    first by a stable sort, and scatter alpha and L^-1 back into the full
+    cell layout (untrained cells keep zeros, which no query reads: the
+    posterior of an untrained cell is the sentinel). Each cell's system is
+    independent, so a trained cell's alpha and L^-1 are its full fit's.
+    Callers pass the pow2 bucket of the host-known nonempty-cell count
+    (api3d._obs_cell_cap); None, or c_cap >= the cell count, fits every
+    cell.
     """
     dev = f.device
     ni, nj = int(v_coords.shape[0]), int(u_coords.shape[0])
@@ -202,16 +212,118 @@ def fit_obsgp2d(v_coords: torch.Tensor, u_coords: torch.Tensor,
     x = torch.stack([vs, us], dim=-1).reshape(c, m, 2)
     fcell = fv.reshape(c, m)
     vmask = pix_ok.reshape(c, m)
+    trained = torch.any(vmask, dim=-1)
 
-    st = gp.fit_gpou(x, fcell, vmask, param.scale, param.noise)
+    if c_cap is not None and c_cap < c:
+        sel = torch.argsort((~trained).to(torch.int8), stable=True)[:c_cap]
+        st = gp.fit_gpou(x[sel], fcell[sel], vmask[sel], param.scale,
+                         param.noise)
+        # the selected empty cells drop onto a dummy trailing row
+        tgt = torch.where(trained[sel], sel, c)
+        alpha = x.new_zeros((c + 1, m))
+        alpha[tgt] = st.alpha
+        linv = x.new_zeros((c + 1, m, m))
+        linv[tgt] = gp.gpou_linv(st.l)
+        alpha, linv = alpha[:-1], linv[:-1]
+    else:
+        st = gp.fit_gpou(x, fcell, vmask, param.scale, param.noise)
+        alpha, linv = st.alpha, gp.gpou_linv(st.l)
     val_i = torch.cat([v_coords[:1], v_coords[torch.tensor(bnd_i,
                                                            device=dev)]])
     val_j = torch.cat([u_coords[:1], u_coords[torch.tensor(bnd_j,
                                                            device=dev)]])
-    return ObsGP2DState(x=x, valid=vmask, alpha=st.alpha,
-                        linv=gp.gpou_linv(st.l),
-                        trained=torch.any(vmask, dim=-1),
-                        val_i=val_i, val_j=val_j)
+    return ObsGP2DState(x=x, valid=vmask, alpha=alpha, linv=linv,
+                        trained=trained, val_i=val_i, val_j=val_j)
+
+
+def ownership_1axis(coords_np: np.ndarray, bnd_np: np.ndarray) -> np.ndarray:
+    """Static per-cell ownership along one partition axis: the
+    obsgp2d_test cell lookup (the count of interior boundaries <= x,
+    ObsGP.cpp:381-391) on the static coordinate grid. Returns idx [nG, W],
+    the coordinate indices each cell owns (-1 padded); ownership regions
+    are contiguous and W is the largest count."""
+    a_of = (bnd_np[None, :] <= coords_np[:, None]).sum(-1)
+    a_of = np.clip(a_of, 0, len(bnd_np) - 1)
+    ng = len(bnd_np)
+    w = int(np.bincount(a_of, minlength=ng).max())
+    idx = np.full((ng, w), -1, np.int32)
+    for a in range(ng):
+        rows = np.nonzero(a_of == a)[0]
+        idx[a, :len(rows)] = rows
+    return idx
+
+
+def obsgp2d_test_blocked(state: ObsGP2DState, q: torch.Tensor,
+                         param: ObsGPParam, roff: int = 1):
+    """obsgp2d_test for queries grouped by a static base cell.
+
+    q: [nG0, nG1, T, 2]; block (i, j) holds queries whose owning cell is
+    within `roff` cells of (i, j) (the caller guarantees it from the
+    camera geometry). Instead of gathering each query's [M, M] factor,
+    every offset of the (2 roff + 1)^2 ring evaluates all blocks against
+    the shifted cell grid with dense batched products, and the owning
+    cell's match selects the result. The offsets run one after another,
+    so the peak memory is one offset's [nG0, nG1, T, M] products. Same
+    cell lookup, margins and sentinels as obsgp2d_test.
+
+    Returns (mean, var) [nG0, nG1, T].
+    """
+    ng0 = state.val_i.shape[0] - 1
+    ng1 = state.val_j.shape[0] - 1
+    mres = state.x.shape[1]
+    v, u = q[..., 0], q[..., 1]
+    m_ok = ((v >= state.val_i[0] + param.margin)
+            & (v <= state.val_i[-1] - param.margin)
+            & (u >= state.val_j[0] + param.margin)
+            & (u <= state.val_j[-1] - param.margin))
+    # owning cell, by obsgp2d_test's comparisons
+    a = torch.searchsorted(state.val_i[1:].contiguous(),
+                           v.reshape(-1).contiguous(),
+                           right=True).reshape(v.shape)
+    b = torch.searchsorted(state.val_j[1:].contiguous(),
+                           u.reshape(-1).contiguous(),
+                           right=True).reshape(u.shape)
+    a = torch.clamp(a, 0, ng0 - 1)
+    b = torch.clamp(b, 0, ng1 - 1)
+
+    x4 = state.x.reshape(ng0, ng1, mres, 2)
+    al4 = state.alpha.reshape(ng0, ng1, mres)
+    li4 = state.linv.reshape(ng0, ng1, mres, mres)
+    vl4 = state.valid.reshape(ng0, ng1, mres)
+    tr4 = state.trained.reshape(ng0, ng1)
+
+    def shift(arr, da, db):
+        """entry (i, j) -> arr[i + da, j + db], zero outside the grid."""
+        out = torch.zeros_like(arr)
+        i0, i1 = max(-da, 0), ng0 - max(da, 0)
+        j0, j1 = max(-db, 0), ng1 - max(db, 0)
+        out[i0:i1, j0:j1] = arr[i0 + da:i1 + da, j0 + db:j1 + db]
+        return out
+
+    ii = torch.arange(ng0, device=q.device)[:, None, None]
+    jj = torch.arange(ng1, device=q.device)[None, :, None]
+    mean = torch.zeros_like(v)
+    var = torch.full_like(v, _PAD_INVALID)
+    for da in range(-roff, roff + 1):
+        for db in range(-roff, roff + 1):
+            ok = ((a == ii + da) & (b == jj + db)
+                  & shift(tr4, da, db)[:, :, None])
+            diff = shift(x4, da, db)[:, :, None, :, :] - q[:, :, :, None, :]
+            r = torch.sqrt(torch.sum(diff * diff, -1))       # [g0,g1,T,M]
+            del diff
+            ks = torch.where(shift(vl4, da, db)[:, :, None, :],
+                             torch.exp(-r / param.scale), 0.0)
+            del r
+            mn = torch.einsum('ghtm,ghm->ght', ks, shift(al4, da, db))
+            vv = torch.einsum('ghmn,ghtn->ghtm', shift(li4, da, db), ks)
+            del ks
+            vr = 1.0 + param.noise - torch.sum(vv * vv, -1)
+            del vv
+            # an untrained owning cell keeps the sentinel
+            mean = torch.where(ok, mn, mean)
+            var = torch.where(ok, vr, var)
+    return (torch.where(m_ok, mean, 0.0),
+            torch.where(m_ok, var, _PAD_INVALID))
 
 
 def obsgp2d_test(state: ObsGP2DState, vu: torch.Tensor, param: ObsGPParam,

@@ -18,10 +18,12 @@ differentiable end to end:
 On a CUDA device both the march and the correction run the tile kernel,
 and the factorizations the chol and linv kernels; the correction's
 gradients come from their torch.autograd.Functions (ops/tile_eval.py,
-ops/chol.py). The JAX package's RenderConfig also carries use_pallas,
-two_phase, remat and flat_eval: the port has one eager single-phase
-path, and the device, not a switch, picks the kernels, so those fields
-are gone.
+ops/chol.py). RenderConfig.two_phase sends the march's queries through
+map_test's two-phase evaluation (the same results); the correction is
+always single-phase. The JAX package's RenderConfig also carries
+use_pallas, remat and flat_eval: the device, not a switch, picks the
+kernels, and the eager port has no program forms to choose, so those
+fields are gone.
 
 The Matern kernel's distance is a sqrt (ops/kernels.py), whose backward
 is NaN at r = 0: a gradient that flows into a pair of coincident points
@@ -59,6 +61,7 @@ class RenderConfig(NamedTuple):
     eps: float = 1e-3
     t_max: float = 10.0
     step_scale: float = 0.9
+    two_phase: bool = False
 
 
 class Hyper(NamedTuple):
@@ -117,7 +120,7 @@ def sdf_eval(store: cluster.ClusterStore, grid: torch.Tensor,
         val_const=h.val_const, grad_const=h.grad_const,
         var_thre=cfg.var_thre, default_var=cfg.default_var, tile=cfg.tile,
         max_cells=cfg.max_cells, max_active=cfg.max_active,
-        factors=factors)
+        factors=factors, two_phase=cfg.two_phase)
     return f + cfg.fbias, g, vf
 
 
@@ -135,8 +138,10 @@ def implicit_correct(store: cluster.ClusterStore, grid: torch.Tensor,
     is exact, and the backward's recompute of the plain tile evaluation
     holds K* and L^-1 K* only for the tiles of those rays.
 
+    Single-phase whatever cfg.two_phase says, as in the JAX package.
     Returns (t [N], f [N], g [N, D], vf [N]).
     """
+    cfg = cfg._replace(two_phase=False)
     x_hat = origins + t_hat[:, None] * dirs
     f, g, vf = sdf_eval(store, grid, x_hat, cfg, factors, hyper)
     denom = torch.sum(g * dirs, dim=-1)

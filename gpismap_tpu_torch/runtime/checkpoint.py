@@ -28,7 +28,7 @@ def load(mapper, path: str) -> None:
     """Restore state saved by `save` (either package's) into a
     compatibly configured mapper (same dim, tree parameters and
     capacities); convert.state_from_numpy checks the capacities and drops
-    the node mirror and the factor cache."""
+    the node mirror, the factor cache and the candidate table."""
     with np.load(path) as d:
         if int(d["format"]) != _FORMAT:
             raise ValueError(

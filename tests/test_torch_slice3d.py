@@ -251,6 +251,27 @@ def test_set_camera_tables():
 
 
 @pytest.mark.parametrize("mode", ["strict", "snapshot", "fused"])
-def test_other_reeval_modes_are_not_ported(mode):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        GPisMap3D(reeval_mode=mode, device="cpu")
+def test_other_reeval_modes_are_not_ported(mappers, frames, mode):
+    """Of the JAX package's other modes only "fused" is left out ("hybrid"
+    replaced it and raises in its place). "strict", the host replay of
+    the per-cell order, gives the hybrid map (the order hybrid computes
+    in one pass); "snapshot" maps the scene too. Each against the JAX
+    package in its own mode: tests/test_torch_modes.py."""
+    if mode == "fused":
+        with pytest.raises(NotImplementedError, match="hybrid"):
+            GPisMap3D(reeval_mode=mode, device="cpu")
+        return
+    _, hybrid = mappers
+    m = GPisMap3D(cap=CapacityParam(**TINY), camera=CameraParam(**CAM),
+                  reeval_mode=mode, device="cpu")
+    for f in frames:
+        m.update(*f)
+    q = _queries()
+    r = m.test(q)
+    if mode == "strict":
+        np.testing.assert_array_equal(m.index.dump_nodes()["alive"],
+                                      hybrid.index.dump_nodes()["alive"])
+        _check_field(r, hybrid.test(q))
+    else:
+        assert m.num_nodes > 100 and np.isfinite(r).all()
+        assert (r[:, 4] < 1.0 + m.p.map_noise_param).mean() > 0.5
