@@ -57,6 +57,24 @@ production shapes:
   strict_reeval=True and 3D "strict" and "snapshot" on the same frames,
   each held to the default mode's mapped-share and SDF-sign floors.
 
+  The mesh (phase 16), each part in child processes of this script
+  (`chip_smoke.py --mesh-child ...`; a failed child fails the run):
+  16a, one rank of an NCCL process group on the card: GPisMap2D(mesh=)
+  on the 28 frames and the grid and GPisMap3D(mesh=) on the 40 frames
+  and the volume, each then ingesting its last frame again (the mesh's
+  retrain keeps no Cholesky factor, so the factor cache re-factorizes
+  through cluster.update_factors, in 3D at n=640 and n=1280), held
+  against the single-device maps of phases 4-5 and 7-8 (equal node
+  counts, fields within MESH_RTOL/MESH_ATOL; the first test(), before
+  any refresh, bitwise equal), and sharded_map_test on
+  phase 8's map against map_test; 16b, the same on two gloo ranks
+  sharing the card, their collectives staged through host memory, with
+  the replicas' digests compared through a collective and each rank's
+  peak memory; 16c, in this process, update_factors at the 3D refresh
+  bucket (n=640) and at full size (n=1280) against a fresh fill, and the
+  3D update with GPISMAP_NODE_MIRROR=0 against phases 7-8 (the first
+  test() bitwise equal, after the refresh MESH_RTOL/MESH_ATOL).
+
 Usage: python3 chip_smoke.py    (from the repository root; needs CUDA)
 
 The last line of standard output is
@@ -147,6 +165,15 @@ RENDER_MEDIAN_3D = 0.01
 # the same inputs, relative to the gradient's largest magnitude; also the
 # correction on the card vs the CPU port
 GRAD_TOL = 1e-3
+# a mapper on a mesh vs the single-device mapper over the same frames:
+# the mesh's retrain keeps no Cholesky factor, so its factor cache is
+# refreshed by re-factorizing, which rounds differently from inverting
+# the fit's L (the JAX package's tests/test_parallel.py:90-95 tolerances)
+MESH_RTOL = 1e-4
+MESH_ATOL = 5e-4
+# sharded_map_test vs map_test on one store (tests/test_parallel.py:66-69)
+SHARDED_TOL = 1e-5
+
 # peak rates of one H100 SXM at its 700 W limit (NVIDIA data sheet): fp32
 # outside the tensor cores (every kernel here is fp32 FMAs) and HBM3
 PEAK_FP32_FLOPS = 67e12
@@ -201,6 +228,41 @@ class Capture:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.orig)
+
+
+class BySize:
+    """Splits the chol and linv wrappers' own launch counts by the matrix
+    size n of each call, while the with block lasts."""
+
+    def __init__(self, chol_ops):
+        self.ops = chol_ops
+        self.counts = {}
+
+    def _wrap(self, name, counter):
+        orig = getattr(self.ops, name)
+
+        def call(x):
+            before = getattr(self.ops, counter)
+            out = orig(x)
+            key = (name, int(x.shape[-1]))
+            self.counts[key] = (self.counts.get(key, 0)
+                                + getattr(self.ops, counter) - before)
+            return out
+        return orig, call
+
+    def __enter__(self):
+        self.orig = {}
+        for name in ("chol", "linv"):
+            self.orig[name], call = self._wrap(name, name + "_launches")
+            setattr(self.ops, name, call)
+        return self
+
+    def __exit__(self, *exc):
+        for name, orig in self.orig.items():
+            setattr(self.ops, name, orig)
+
+    def at(self, name: str, n: int) -> int:
+        return self.counts.get((name, n), 0)
 
 
 def bound(flops: float, nbytes: float):
@@ -480,7 +542,8 @@ def run_3d(card, torch_scenes, chol_ops, tile_ops, cluster, convert):
                tile_plain_ms=plain_ms, tile_bound=bnd,
                chol_err=max(r["chol_err"] for r in rows),
                linv_err=max(r["linv_err"] for r in rows),
-               headline=rows[-1])                   # B=64 at MP=1280
+               headline=rows[-1],                   # B=64 at MP=1280
+               row640=rows[-2])                     # B=64 at MP=640
     del warm, cap, cap_fit, cap_fill, args, kwargs, systems
 
     # ---- phase 7: the 3D main path at full size, on the default device ----
@@ -490,6 +553,7 @@ def run_3d(card, torch_scenes, chol_ops, tile_ops, cluster, convert):
     m.set_camera(1, "bigbird")
     tile_ops.launches = 0
     chol_ops.chol_launches = chol_ops.linv_launches = 0
+    by_size = BySize(chol_ops).__enter__()    # to phase 8's update
     torch.cuda.synchronize()
     t0 = time.time()
     m.update_batch(frames)
@@ -581,6 +645,7 @@ def run_3d(card, torch_scenes, chol_ops, tile_ops, cluster, convert):
     torch.cuda.synchronize()
     t_refresh = time.time() - t0
     refresh = (chol_ops.chol_launches, chol_ops.linv_launches)
+    by_size.__exit__()
     if m._factors is None or m._factors[1] is not uniq:
         fail("the re-ingested 3D frame dropped the factor cache instead of "
              "refreshing it")
@@ -615,7 +680,9 @@ def run_3d(card, torch_scenes, chol_ops, tile_ops, cluster, convert):
     out.update(tile_launches=tst[0],
                chol_launches=upd[1] + tst[1] + refresh[0],
                linv_launches=upd[2] + tst[2] + refresh[1],
-               map=m, frames=frames, qr=qr)
+               chol640_launches=by_size.at("chol", 640),
+               linv640_launches=by_size.at("linv", 640),
+               map=m, frames=frames, qr=qr, res=res)
     return out
 
 
@@ -1460,6 +1527,337 @@ def run_modes(card, frames2d, grid, gazebo, frames3d, volume, res3d,
     return n_mode
 
 
+def mesh_err(a: np.ndarray, b: np.ndarray, rtol: float, atol: float):
+    """(largest |a - b| / (atol + rtol |b|), per-column max |a - b|): the
+    first at most 1 means np.allclose(a, b, rtol, atol)."""
+    d = np.abs(a - b)
+    return float((d / (atol + rtol * np.abs(b))).max()), d.max(0)
+
+
+def mesh_child(argv) -> int:
+    """One rank of phase 16a (part "nccl") or 16b (part "gloo"): both
+    mappers on the mesh over the frames of phases 4 and 7, each with its
+    last frame ingested again, against the single-device results the
+    parent left in workdir/ref.npz; sharded_map_test on phase 8's map.
+    Writes workdir/<part>_<rank>.json; fails (exit 1) on any mismatch."""
+    import datetime
+
+    import torch.distributed as dist
+
+    part, rank, world, port, work = argv
+    rank, world = int(rank), int(world)
+    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_scenes
+    from gpismap_tpu_torch import BIGBIRD_CAMS, GPisMap2D, GPisMap3D
+    from gpismap_tpu_torch.models import cluster
+    from gpismap_tpu_torch.ops import chol as chol_ops
+    from gpismap_tpu_torch.ops import tile_eval as tile_ops
+    from gpismap_tpu_torch.parallel import data_mesh, sharded_map_test
+    from gpismap_tpu_torch.runtime import checkpoint
+
+    tag = f"phase 16{'a' if part == 'nccl' else 'b'} rank {rank}/{world}"
+    backend = "nccl" if part == "nccl" else "gloo"
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=600))
+    mesh = data_mesh(device="cuda:0")
+    want_comm = "cuda" if backend == "nccl" else "cpu"
+    if (mesh.size, mesh.rank) != (world, rank) \
+            or mesh.comm_device.type != want_comm:
+        fail(f"{tag}: {mesh}")
+    ref = np.load(os.path.join(work, "ref.npz"))
+    gazebo = torch_scenes.gazebo_path()
+    frames2d = (torch_scenes.gazebo_frames(gazebo) if gazebo
+                else torch_scenes.floor_frames(28))
+    frames3d = torch_scenes.object_frames(40, BIGBIRD_CAMS[0])
+    out = dict(backend=backend, comm_device=str(mesh.comm_device))
+
+    def plain_rate(m, frames):
+        """Update frames/s of a mapper without a mesh in this process,
+        after its first frame (the mesh run's baseline)."""
+        m.update(*frames[0])
+        torch.cuda.synchronize()
+        t0 = time.time()
+        m.update_batch(frames[1:])
+        torch.cuda.synchronize()
+        return (len(frames) - 1) / (time.time() - t0)
+
+    def drive(label, m, frames, q1, want1, q2, want2, nodes, base):
+        counts(tile_ops, chol_ops, reset=True)
+        with BySize(chol_ops) as bs:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            m.update(*frames[0])        # the first collectives set up
+            torch.cuda.synchronize()
+            t_first = time.time() - t0
+            m.update_batch(frames[1:])
+            torch.cuda.synchronize()
+            t_upd = time.time() - t0
+            r1 = m.test(q1)
+            if m._factors is None:
+                fail(f"{tag} {label}: test() filled no factor cache")
+            m.update(*frames[-1])
+            if m._factors is None:
+                fail(f"{tag} {label}: the re-ingested frame dropped the "
+                     f"factor cache instead of refreshing it")
+            r2 = m.test(q2)
+            torch.cuda.synchronize()
+        n = counts(tile_ops, chol_ops)
+        digest = m.check_replicas()
+        e1, d1 = mesh_err(r1, want1, MESH_RTOL, MESH_ATOL)
+        e2, d2 = mesh_err(r2, want2, MESH_RTOL, MESH_ATOL)
+        bitwise = bool(np.array_equal(r1, want1))
+        print(f"{tag} {label}: {m.num_nodes} nodes (single device "
+              f"{int(nodes)}), update {len(frames) / t_upd:.2f} frames/s "
+              f"({(len(frames) - 1) / (t_upd - t_first):.2f} after the "
+              f"first frame's {t_first * 1e3:.0f} ms; without a mesh in "
+              f"this process {base:.2f}); "
+              f"test() of the {len(q1)} points vs the single-device map: "
+              f"max abs diff " + " ".join(f"{v:.3g}" for v in d1)
+              + f" (bitwise equal: {bitwise}); after the re-ingest "
+              f"(update_factors refresh) at {len(q2)} random points: "
+              + " ".join(f"{v:.3g}" for v in d2)
+              + f"; worst diff / (atol + rtol |ref|) {max(e1, e2):.3g}; "
+              f"launches tile/chol/linv {n[0]}/{n[1]}/{n[2]}, chol/linv "
+              f"at n=640 {bs.at('chol', 640)}/{bs.at('linv', 640)}; "
+              f"digest {digest[:16]}", flush=True)
+        if m.num_nodes != int(nodes):
+            fail(f"{tag} {label}: {m.num_nodes} nodes, the single-device "
+                 f"map has {int(nodes)}")
+        if max(e1, e2) > 1.0:
+            fail(f"{tag} {label}: the mesh map differs from the "
+                 f"single-device map beyond rtol {MESH_RTOL} atol "
+                 f"{MESH_ATOL}")
+        if world == 1 and not bitwise:
+            fail(f"{tag} {label}: one rank's first test() is not bitwise "
+                 f"equal to the single-device map's (it runs the same "
+                 f"fits and a fresh factor fill)")
+        if n[0] < 1 or n[1] < 1 or n[2] < 1:
+            fail(f"{tag} {label}: launches tile/chol/linv {n}")
+        out[label] = dict(launches=list(n), chol640=bs.at("chol", 640),
+                          linv640=bs.at("linv", 640), digest=digest,
+                          bitwise=bitwise, err=max(e1, e2),
+                          frames_per_s=len(frames) / t_upd,
+                          first_frame_s=t_first, plain_frames_per_s=base)
+
+    base = plain_rate(GPisMap2D(device=mesh.device), frames2d)
+    m2 = GPisMap2D(mesh=mesh)
+    if m2.device != torch.device("cuda", 0):
+        fail(f"{tag}: GPisMap2D(mesh=) runs on {m2.device}")
+    drive("2d", m2, frames2d, ref["grid"], ref["res2d"], ref["qr2"],
+          ref["res2d_after"], ref["nodes2d"], base)
+    del m2
+    m3 = GPisMap3D(device=mesh.device)
+    m3.set_camera(1, "bigbird")
+    base = plain_rate(m3, frames3d)
+    m3 = GPisMap3D(mesh=mesh)
+    m3.set_camera(1, "bigbird")
+    drive("3d", m3, frames3d, ref["volume"], ref["res3d"], ref["qr3"],
+          ref["res3d_after"], ref["nodes3d"], base)
+    del m3
+
+    # sharded_map_test on phase 8's map vs map_test, on the volume
+    m8 = GPisMap3D(mesh=mesh)
+    checkpoint.load(m8, os.path.join(work, "map3d.npz"))
+    vol = ref["volume"]
+    qv = np.full((1 << (len(vol) - 1).bit_length(), 3), 1e6, np.float32)
+    qv[:len(vol)] = vol
+    qv = torch.as_tensor(qv, device=m8.device)
+    kw = dict(m8._test_kwargs(), factors=m8._get_factors())
+    one = cluster.map_test(m8.store, m8.grid, qv, **kw)
+    shd = sharded_map_test(m8.store, m8.grid, qv, mesh, **kw)
+    worst = max(mesh_err(b.cpu().numpy(), a.cpu().numpy(), SHARDED_TOL,
+                         SHARDED_TOL)[0] for a, b in zip(one[:4], shd[:4]))
+    bitwise = all(torch.equal(a, b) for a, b in zip(one[:4], shd[:4]))
+    info_ok = all(int(a) == int(b) for a, b in zip(one[4], shd[4]))
+    print(f"{tag}: sharded_map_test on phase 8's map, {len(qv)} padded "
+          f"queries in shards of {len(qv) // world}: bitwise equal to "
+          f"map_test: {bitwise}; worst diff / (atol + rtol |ref|) at "
+          f"{SHARDED_TOL}: {worst:.3g}; TestInfo equal: {info_ok}",
+          flush=True)
+    if worst > 1.0 or not info_ok:
+        fail(f"{tag}: sharded_map_test differs from map_test")
+    out["sharded_bitwise"] = bitwise
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{tag}: peak memory allocated by this rank "
+          f"{out['peak_gib']:.2f} GiB", flush=True)
+    del m8
+    with open(os.path.join(work, f"{part}_{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def spawn_mesh(part: str, world: int, work: str):
+    """Runs `world` ranks of mesh_child for part, prints their output,
+    fails on any child's failure. Returns each rank's JSON record."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = str(sk.getsockname()[1])
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-child", part,
+         str(r), str(world), port, work], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=420)[0])
+    except subprocess.TimeoutExpired:
+        outs.append("(timed out)")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for o in outs:
+        print("".join("  " + line for line in o.splitlines(True)),
+              end="", flush=True)
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        fail(f"phase 16 {part}: ranks {bad} of {world} failed")
+    recs = []
+    for r in range(world):
+        with open(os.path.join(work, f"{part}_{r}.json")) as fh:
+            recs.append(json.load(fh))
+    return recs
+
+
+def run_mesh(card, m2, res2d, qr2, grid, m3, r3, volume, cluster,
+             checkpoint, tile_ops, chol_ops):
+    """Phase 16: the mesh. Returns the launches of each mesh path as
+    (tile, chol, linv, chol at n=640, linv at n=640)."""
+    from gpismap_tpu_torch import GPisMap3D
+
+    t_phase = time.time()
+    paths = {}
+    with tempfile.TemporaryDirectory() as work:
+        checkpoint.save(m3, os.path.join(work, "map3d.npz"))
+        np.savez(os.path.join(work, "ref.npz"), grid=grid, res2d=res2d,
+                 qr2=qr2, res2d_after=m2.test(qr2), nodes2d=m2.num_nodes,
+                 volume=volume, res3d=r3["res"], qr3=r3["qr"],
+                 res3d_after=m3.test(r3["qr"]), nodes3d=m3.num_nodes)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        print("phase 16a: one rank of an NCCL process group on the card",
+              flush=True)
+        t0 = time.time()
+        (a,) = spawn_mesh("nccl", 1, work)
+        print(f"  phase 16a wall {time.time() - t0:.1f} s", flush=True)
+        print("phase 16b: two gloo ranks on the one card, collectives "
+              "through host memory", flush=True)
+        t0 = time.time()
+        b = spawn_mesh("gloo", 2, work)
+        print(f"  phase 16b wall {time.time() - t0:.1f} s", flush=True)
+    if a["backend"] != "nccl" or a["comm_device"] != "cuda:0":
+        fail(f"phase 16a ran {a['backend']} on {a['comm_device']}")
+    for key in ("2d", "3d"):
+        if b[0][key]["digest"] != b[1][key]["digest"]:
+            fail(f"phase 16b: the ranks' {key} digests differ")
+
+    def entry(rec):
+        return tuple(rec["launches"]) + (rec["chol640"], rec["linv640"])
+
+    paths["mesh_2d_update_test"] = entry(a["2d"])
+    paths["mesh_3d_update_test"] = entry(a["3d"])
+    paths["mesh_2rank_2d_update_test"] = tuple(
+        x + y for x, y in zip(entry(b[0]["2d"]), entry(b[1]["2d"])))
+    paths["mesh_2rank_3d_update_test"] = tuple(
+        x + y for x, y in zip(entry(b[0]["3d"]), entry(b[1]["3d"])))
+    peak = max(r["peak_gib"] for r in b)
+
+    # ---- 16c: update_factors at the 3D refresh bucket and at full size,
+    # on phase 8's map, against a fresh fill ----
+    store, scale = m3.store, m3.p.map_scale_param
+    if m3._refresh_buckets() != (160, None):
+        fail(f"3D refresh buckets {m3._refresh_buckets()}, not (160, None)")
+    mb = 160
+    live = m3._live_slots()
+    lt = torch.as_tensor(live, device=m3.device).long()
+    small = ~store.valid[lt][:, mb:].any(1).cpu().numpy()
+    pad = np.full(m3.cap.test_active_cells, -1, np.int32)
+    pad[:len(live)] = live
+    fresh, uniq = cluster.factorize_slots(
+        store, torch.as_tensor(pad, device=m3.device), scale,
+        m3.cap.test_active_cells)
+    top = float(fresh.abs().max())
+    for label, bucket, sl in (("n=640", mb, live[small][:64]),
+                              ("n=1280", None, live[~small][:64])):
+        if len(sl) < 8:
+            fail(f"phase 16c: only {len(sl)} live cells for {label}")
+        slt = torch.as_tensor(sl, device=m3.device)
+        rows = torch.searchsorted(uniq, slt)
+        buf = fresh.clone()
+        buf[rows] = 0.0
+        with BySize(chol_ops) as bs:
+            cluster.update_factors(store, buf, uniq, slt, scale, mb=bucket)
+        rel = float((buf - fresh).abs().max()) / top
+        n = int(label[2:])
+        ms = cuda_ms(lambda: cluster.update_factors(
+            store, buf, uniq, slt, scale, mb=bucket), 3)
+        print(f"phase 16c: update_factors of {len(sl)} cells at {label} "
+              f"(mb={bucket}) vs a fresh fill: max abs diff relative to "
+              f"max |L^-1| {rel:.3g}; chol/linv launches at n={n} "
+              f"{bs.at('chol', n)}/{bs.at('linv', n)}; CUDA-event ms per "
+              f"call {ms:.3f} ({card})", flush=True)
+        if rel > LINV_REL_TOL:
+            fail(f"phase 16c: update_factors at {label} differs by {rel}")
+        if bs.at("chol", n) < 1 or bs.at("linv", n) < 1:
+            fail(f"phase 16c: update_factors at {label} launched no chol "
+                 f"or linv at n={n}")
+    del fresh, buf
+
+    # ---- 16c: the 3D update with the node mirror off ----
+    with Env(GPISMAP_NODE_MIRROR="0"):
+        mo = GPisMap3D()
+        mo.set_camera(1, "bigbird")
+        frames = r3["frames"]
+        counts(tile_ops, chol_ops, reset=True)
+        with BySize(chol_ops) as bs:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            mo.update_batch(frames)
+            torch.cuda.synchronize()
+            t_upd = time.time() - t0
+            r1 = mo.test(volume)
+            mo.update(*frames[-1])
+            if mo._factors is None or mo._mirror is not None:
+                fail("phase 16c: the mirror-off update kept a mirror or "
+                     "dropped the factor cache")
+            r2 = mo.test(r3["qr"])
+            torch.cuda.synchronize()
+        n = counts(tile_ops, chol_ops)
+    e1, d1 = mesh_err(r1, r3["res"], MESH_RTOL, MESH_ATOL)
+    e2, d2 = mesh_err(r2, m3.test(r3["qr"]), MESH_RTOL, MESH_ATOL)
+    print(f"phase 16c: 3D update with GPISMAP_NODE_MIRROR=0: "
+          f"{mo.num_nodes} nodes (default {m3.num_nodes}), "
+          f"{len(frames) / t_upd:.2f} frames/s; test() vs phase 7: max abs "
+          f"diff " + " ".join(f"{v:.3g}" for v in d1)
+          + f" (bitwise equal: {bool(np.array_equal(r1, r3['res']))}); "
+          f"after the re-ingest vs phase 8: "
+          + " ".join(f"{v:.3g}" for v in d2)
+          + f"; worst diff / (atol + rtol |ref|) {max(e1, e2):.3g}; "
+          f"launches tile/chol/linv {n[0]}/{n[1]}/{n[2]}, chol/linv at "
+          f"n=640 {bs.at('chol', 640)}/{bs.at('linv', 640)} ({card})",
+          flush=True)
+    if mo.num_nodes != m3.num_nodes or max(e1, e2) > 1.0:
+        fail("phase 16c: the mirror-off 3D map differs from the default")
+    if not np.array_equal(r1, r3["res"]):
+        fail("phase 16c: the mirror-off first test() is not bitwise equal "
+             "to phase 7's (the same fits on the same support, a fresh "
+             "factor fill)")
+    paths["mirror_off_3d_update_test"] = tuple(n) + (bs.at("chol", 640),
+                                                     bs.at("linv", 640))
+    del mo
+    print(f"  phase 16 wall {time.time() - t_phase:.1f} s; two-rank peak "
+          f"memory {peak:.2f} GiB per rank", flush=True)
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU",
@@ -1718,6 +2116,10 @@ def main() -> int:
     n15 = run_modes(card, frames, grid, gazebo, r3["frames"], volume,
                     res3d, torch_scenes, tile_ops, chol_ops)
 
+    # ---- phase 16: the mesh ----
+    n16 = run_mesh(card, m, res, qr, grid, m3, r3, volume, cluster,
+                   checkpoint, tile_ops, chol_ops)
+
     t2 = "gpismap_tpu/ops/pallas_tile.py:118"
     pc = "gpismap_tpu/ops/pallas_chol.py"
     h3 = r3["headline"]
@@ -1738,6 +2140,15 @@ def main() -> int:
            ("table_test_3d", n13["3D"]), ("two_phase_map_test_3d", n14["3D"]),
            ("strict_3d_update_test", n15["strict_3d"]),
            ("snapshot_3d_update_test", n15["snapshot_3d"]))
+    r2d += tuple((k, n16[k]) for k in ("mesh_2d_update_test",
+                                       "mesh_2rank_2d_update_test"))
+    r3d += tuple((k, n16[k]) for k in ("mesh_3d_update_test",
+                                       "mesh_2rank_3d_update_test",
+                                       "mirror_off_3d_update_test"))
+    # the n=640 rows count the chol/linv calls at that size only: the 3D
+    # retrain's middle bucket (mb=160) and the bucketed refresh
+    r640 = tuple((k, v[3:]) for k, v in r3d if len(v) == 5)
+    h640 = r3["row640"]
     kernels = [
         kernel_entry("tile_eval (d=2)", t2, paths(launches, r2d, 0),
                      max(max(err3.values()), max(err4.values())), ms,
@@ -1761,7 +2172,17 @@ def main() -> int:
         kernel_entry("linv (n=1280)", f"{pc}:188",
                      paths(r3["linv_launches"], r3d, 2), r3["linv_err"],
                      h3["linv_ms"], h3["linv_plain_ms"], h3["bound"],
-                     h3["linv_library_ms"])]
+                     h3["linv_library_ms"]),
+        kernel_entry("chol (n=640)", f"{pc}:167",
+                     paths(r3["chol640_launches"], r640, 0),
+                     h640["chol_err"], h640["chol_ms"],
+                     h640["chol_plain_ms"], h640["bound"],
+                     h640["chol_library_ms"]),
+        kernel_entry("linv (n=640)", f"{pc}:188",
+                     paths(r3["linv640_launches"], r640, 1),
+                     h640["linv_err"],
+                     h640["linv_ms"], h640["linv_plain_ms"], h640["bound"],
+                     h640["linv_library_ms"])]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1771,4 +2192,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-child"]:
+        sys.exit(mesh_child(sys.argv[2:]))
     sys.exit(main())

@@ -2,13 +2,23 @@
 orchestration both mappers share.
 
 Port of gpismap_tpu/api.py:GPisMap2D (snapshot and strict re-evaluation)
-and of the dimension-free parts of its _MeshMixin and _retrain_store
-(without the mesh). A host orchestrator that drives:
+and of the dimension-free parts of its _MeshMixin and _retrain_store.
+A host orchestrator that drives:
   * the native spatial index (csrc/gpis_index.cpp) for tree mutations
   * the per-frame tensor stages (models/mapper2d.py) for the GP math
   * the cluster-GP store, the node mirror and the factor cache
     (models/cluster.py) for the retrain and test()
-on one torch device.
+on one torch device, or on every rank of a parallel.mesh.Mesh (mesh=):
+each rank keeps a replica of the whole map, computes its share of the
+batches whose rows are independent, and all-gathers the results, so
+every rank replays the same host index (_MapperBase).
+
+GPISMAP_NODE_MIRROR=0 (read at each retrain) gathers the retrain's
+support on the host instead of from the device node mirror, as the JAX
+package does; that retrain, like a mesh's, keeps no Cholesky factor, so
+the factor cache is refreshed by re-factorizing the retrained cells
+(cluster.update_factors), grouped into at most two refresh sizes
+(_refresh_buckets).
 
 With GPISMAP_NBR_TABLE=1, test() finds each query's candidate cells
 through a precomputed candidate table (cluster.NeighborTable), as the
@@ -19,6 +29,8 @@ retrain (PERF.md).
 """
 from __future__ import annotations
 
+import functools
+import hashlib
 import os
 import time
 
@@ -59,20 +71,38 @@ def _to_numpy(nt):
 
 class _MapperBase:
     """The dimension-free host orchestration of both mappers: device
-    checks, map reset, the new-measurement insert, the node mirror, the
-    bucketed retrain, the cluster grid, the factor cache and test() (the
-    JAX package's _MeshMixin and _retrain_store, without the mesh).
+    checks, the mesh, map reset, the new-measurement insert, the node
+    mirror, the bucketed retrain, the cluster grid, the factor cache and
+    test() (the JAX package's _MeshMixin and _retrain_store).
 
     A subclass sets params, the dimension and the test search box
     through _setup, and supplies update() and the test constants
     (_test_kwargs). The candidate table, when GPISMAP_NBR_TABLE turns
     it on, is built at the first test() after a change of the map and
-    dropped by every retrain, reset and load."""
+    dropped by every retrain, reset and load.
+
+    With a mesh (parallel.mesh.Mesh; the JAX package's _MeshMixin, on
+    one process per GPU): test() splits its queries over the ranks
+    (cluster.map_test_sharded); the retrain pads each chunk to at least
+    the mesh size, every rank fits its rows and the fitted store rows
+    are all-gathered into every rank's store; the subclasses split their
+    per-frame batches of independent rows (_shard/_gather). No fit keeps
+    its Cholesky factor (a rank holds only its rows'), so the factor
+    cache refreshes through cluster.update_factors. Every other stage
+    runs replicated, and every rank replays the same host index from
+    the same gathered results: check_replicas() proves it."""
 
     def _setup(self, params: MapperParam, obs_param: ObsGPParam,
                tree: TreeParam, cap: CapacityParam, dim: int,
-               device: torch.device | str, search_half: float) -> None:
+               device, search_half: float, mesh=None) -> None:
+        self.cap = cap
+        self._init_mesh(mesh)
+        if device is None:
+            device = "cuda" if mesh is None else mesh.device
         self.device = torch.device(device)
+        if mesh is not None and self.device != mesh.device:
+            raise ValueError(f"{type(self).__name__}: device {self.device} "
+                             f"is not the mesh's {mesh.device}")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"{type(self).__name__}(device="
                                f"'{self.device}'): no CUDA device is "
@@ -81,7 +111,6 @@ class _MapperBase:
         self.p = params
         self.op = obs_param
         self.tp = tree
-        self.cap = cap
         self.dim = dim
         self.index = SpatialIndex(dim, tree, max_slots=cap.max_cells)
         self.cell_size = 2.0 * tree.cluster_halfleng
@@ -108,8 +137,54 @@ class _MapperBase:
         self._nbrs = None       # candidate table (cluster.NeighborTable)
         self._nbr_dense = False
 
+    def _init_mesh(self, mesh) -> None:
+        """Keep the mesh (None: one device). Padded batches are powers of
+        two >= 64 and retrain chunks divide retrain_batch, so the size
+        must be a power of two dividing both."""
+        self.mesh = mesh
+        if mesh is None:
+            return
+        if 64 % mesh.size != 0 or self.cap.retrain_batch % mesh.size != 0:
+            raise ValueError(
+                f"mesh size {mesh.size} must be a power of two dividing "
+                f"64 and retrain_batch={self.cap.retrain_batch} "
+                "(sharded axes are padded to multiples of these)")
+
     def _t(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
+
+    def _shard(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a batch (all of it without a mesh)."""
+        return x if self.mesh is None else self.mesh.shard(x)
+
+    def _gather(self, nt):
+        """Every rank's rows of a NamedTuple of row batches, in one
+        collective (nt itself without a mesh)."""
+        return nt if self.mesh is None else self.mesh.gather_rows(nt)
+
+    def state_digest(self) -> str:
+        """SHA-256 of the host index blob and every field of the store:
+        equal on every rank of a mesh whose replay stayed in step."""
+        h = hashlib.sha256(self.index.serialize().tobytes())
+        for x in self.store:
+            h.update(x.detach().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    def check_replicas(self) -> str:
+        """All-gather state_digest() over the mesh and raise
+        RuntimeError when two ranks differ. Returns the digest."""
+        dg = self.state_digest()
+        if self.mesh is None or self.mesh.group is None:
+            return dg
+        mine = torch.as_tensor(np.frombuffer(bytes.fromhex(dg), np.uint8),
+                               device=self.device)
+        every = self.mesh.all_gather(mine[None]).cpu().numpy()
+        if (every != every[0]).any():
+            raise RuntimeError(
+                f"the mesh's replicas diverged: rank {self.mesh.rank} has "
+                f"{dg}, the ranks have "
+                f"{[bytes(r).hex()[:16] for r in every]}")
+        return dg
 
     def _apply_newmeas(self, nm) -> int:
         """Dedup + insert new hits (GPisMap.cpp:492-568). Returns the
@@ -136,11 +211,23 @@ class _MapperBase:
                 rv.dbl_grad_sig[:n], -self.p.fbias)
 
     # ------------------------------------------------------------------
+    def _use_mirror(self) -> bool:
+        """The device node mirror (retrain support gathered on the device
+        by id): GPISMAP_NODE_MIRROR, read at each retrain; 0/off gathers
+        the support on the host instead (the same values)."""
+        return os.environ.get("GPISMAP_NODE_MIRROR", "1") not in (
+            "0", "off")
+
     def _sync_mirror(self) -> None:
         """Scatter the nodes mutated since the last sync into the device
         node mirror; the first call after reset() or a load seeds it with
         every live node. Raises ValueError (from scatter_mirror) for a
-        node id at or above cap.max_nodes, the mirror's length."""
+        node id at or above cap.max_nodes, the mirror's length. With the
+        mirror off it drops the mirror, so that turning it on again
+        seeds a new one."""
+        if not self._use_mirror():
+            self._mirror = None
+            return
         if self._mirror is None:
             self._mirror = cluster.make_mirror(self.cap, self.dim,
                                                self.device)
@@ -167,10 +254,13 @@ class _MapperBase:
         the [f; gx; gy] layout puts the padded rows inside the matrix, so
         the kernels' 64-wide blocks group the sums differently at the
         bucket's size and at full padding). The support is gathered on
-        the device from the node mirror,
-        and the factor cache is refreshed from the fits' own Cholesky
-        factors. This is the JAX package's fused frame epilogue
-        (frame_finish_full), run as its separate stages in the same order."""
+        the device from the node mirror, or on the host with the mirror
+        off. By default the factor cache is refreshed from the fits' own
+        Cholesky factors; with a mesh or the mirror off the fits keep
+        none and the cache re-factorizes the retrained cells. This is
+        the JAX package's _retrain_store, its fused frame epilogue
+        (frame_finish_full) run as its separate stages in the same
+        order."""
         mcap = self.cap.gp_support
         rt = self.index.collect_retrain(self.p.gp_radius_times, mcap,
                                         self.cap.retrain_batch * 16)
@@ -178,6 +268,8 @@ class _MapperBase:
         if rt["total"] > b:
             self.stats["retrain_truncated"] = rt["total"] - b
         self._sync_mirror()
+        keep_l = self.mesh is None and self._mirror is not None
+        lo = 8 if self.mesh is None else max(8, self.mesh.size)
         fit_ls = []            # (padded slot rows, fit Cholesky factor)
         counts = rt["counts"][:b]
         assigned = np.zeros(b, bool)
@@ -187,22 +279,51 @@ class _MapperBase:
             rows = np.nonzero(selb)[0]
             if not len(rows):
                 continue
-            chunk = min(self.cap.retrain_batch, _next_pow2(len(rows), lo=8))
+            chunk = min(self.cap.retrain_batch, _next_pow2(len(rows), lo=lo))
             for s in range(0, len(rows), chunk):
                 rr = rows[s:s + chunk]
                 sup = np.full((chunk, mb), -1, np.int32)
                 sup[:len(rr)] = rt["support"][rr][:, :mb]
                 slots = np.full(chunk, -1, np.int32)
                 slots[:len(rr)] = rt["slots"][rr]
-                self.store, l = cluster.retrain_cells_from_mirror_with_l(
-                    self.store, self._mirror, self._t(slots),
-                    self._t(slots >= 0), self._t(sup),
-                    self.p.map_scale_param)
-                fit_ls.append((slots, l))
+                if keep_l:
+                    self.store, l = cluster.retrain_cells_from_mirror_with_l(
+                        self.store, self._mirror, self._t(slots),
+                        self._t(slots >= 0), self._t(sup),
+                        self.p.map_scale_param)
+                    fit_ls.append((slots, l))
+                else:
+                    self._retrain_chunk(slots, sup)
         self.index.clear_active()
         self._rebuild_grid()
         self._nbrs = None       # `trained` is baked in: rebuilt at test()
-        self._refresh_factors(fit_ls)
+        self._refresh_factors(rt["slots"][:b], counts, fit_ls)
+
+    def _retrain_chunk(self, slots: np.ndarray, sup: np.ndarray) -> None:
+        """Fit one padded retrain chunk without keeping its Cholesky
+        factor: this rank's rows of it (all of them without a mesh), the
+        support gathered from the node mirror or, with the mirror off, on
+        the host; the fitted rows are all-gathered and scattered into the
+        store, the same on every rank."""
+        rows = slice(None) if self.mesh is None else \
+            self.mesh.local_rows(len(slots))
+        sup_l = sup[rows]
+        if self._mirror is not None:
+            data = cluster.mirror_support(self._mirror, self._t(sup_l))
+        else:
+            nd = self.index.get_nodes(sup_l.reshape(-1))
+            shp = sup_l.shape
+            data = (self._t(nd["pos"].reshape(shp + (self.dim,))),
+                    self._t(nd["grad"].reshape(shp + (self.dim,))),
+                    self._t(nd["val"].reshape(shp)),
+                    self._t(nd["pos_sig"].reshape(shp)),
+                    self._t(nd["grad_sig"].reshape(shp)),
+                    self._t(sup_l >= 0))
+        fitted, _ = cluster.fit_cells(*data, self.p.map_scale_param,
+                                      self.cap.gp_support)
+        self.store = cluster.scatter_cells(
+            self.store, self._t(slots), self._t(slots >= 0),
+            self._gather(fitted))
 
     def _rebuild_grid(self) -> None:
         """Dense cluster grid rebuilt on the device from the live cells."""
@@ -248,14 +369,30 @@ class _MapperBase:
         self._factors_slots = live
         return self._factors
 
-    def _refresh_factors(self, fit_ls) -> None:
+    def _refresh_buckets(self) -> tuple:
+        """The refresh sizes of update_factors: at most two groups, the
+        largest refresh_bucket below capacity, then the full capacity
+        (None). The JAX package keeps two because every chained refresh
+        holds a copy of the cache (3D: 2.1 GB) until the chain ends; the
+        port refreshes in place, and keeps its groups."""
+        subs = [cluster.refresh_bucket(b, self.cap.gp_support, self.dim)
+                for b in self._retrain_buckets]
+        subs = sorted({s for s in subs if s is not None})
+        return ((subs[-1],) if subs else ()) + (None,)
+
+    def _refresh_factors(self, retrained_slots: np.ndarray,
+                         counts: np.ndarray, fit_ls) -> None:
         """Factor-cache upkeep after a retrain. If the live slot set is
         unchanged since the cache was filled, only the retrained cells'
-        factors are refreshed, from the fits' own Cholesky factors
-        (fit_ls: (padded slot rows, l) per retrain chunk; empty when
-        nothing retrained), so the next test() skips the full refill; any
-        change of the slot set (a new cell, a pruned one) drops the
-        cache."""
+        factors are refreshed, so the next test() skips the full refill;
+        any change of the slot set (a new cell, a pruned one) drops the
+        cache.
+
+        fit_ls: (padded slot rows, l) per retrain chunk: the refresh
+        inverts the fits' own Cholesky factors (update_factors_from_l).
+        Empty (a mesh, or the mirror off), the retrained slots
+        re-factorize grouped by refresh bucket of their support counts
+        (update_factors)."""
         old, self._factors = self._factors, None
         if old is None or self._factors_slots is None:
             self._factors_slots = None
@@ -269,6 +406,20 @@ class _MapperBase:
         for slots, l in fit_ls:
             linv_buf = cluster.update_factors_from_l(
                 linv_buf, uniq, self._t(slots), l, d=self.dim)
+        if not fit_ls and len(retrained_slots):
+            assigned = np.zeros(len(retrained_slots), bool)
+            for mb in self._refresh_buckets():
+                sel = ~assigned if mb is None else (~assigned) & (counts
+                                                                  <= mb)
+                assigned |= sel
+                if not sel.any():
+                    continue
+                sl_np = retrained_slots[sel]
+                sl = np.full(_next_pow2(len(sl_np), lo=8), -1, np.int32)
+                sl[:len(sl_np)] = sl_np
+                linv_buf = cluster.update_factors(
+                    self.store, linv_buf, uniq, self._t(sl),
+                    self.p.map_scale_param, mb=mb)
         self._factors = (linv_buf, uniq)
 
     # ------------------------------------------------------------------
@@ -307,7 +458,8 @@ class _MapperBase:
 
         x: [N, D] world points. Returns [N, 2 + 2D]: [f, grad (D),
         var_f, var_grad (D)], with the unmapped sentinel var_f =
-        1 + map_noise (GPisMap.cpp:685).
+        1 + map_noise (GPisMap.cpp:685). With a mesh every rank passes
+        the same x, evaluates its shard of it and returns all of it.
         """
         x = np.asarray(x, np.float32).reshape(-1, self.dim)
         nq = x.shape[0]
@@ -318,7 +470,9 @@ class _MapperBase:
             self._nbrs = None
         elif self._nbrs is None:
             self._build_nbrs()
-        f, g, vf, vg, info = cluster.map_test(
+        run = cluster.map_test if self.mesh is None else functools.partial(
+            cluster.map_test_sharded, mesh=self.mesh)
+        f, g, vf, vg, info = run(
             self.store, self.grid, self._t(xq), factors=self._get_factors(),
             nbrs=self._nbrs, nbr_dense=self._nbr_dense,
             **self._test_kwargs())
@@ -362,6 +516,12 @@ class GPisMap2D(_MapperBase):
     each cell's nodes gathered after the earlier cells' mutations, so a
     node moved forward is re-evaluated again. The default evaluates one
     snapshot of the in-view nodes in the frame's single device pass.
+
+    mesh (parallel.mesh.Mesh) runs the loop on every rank of the mesh
+    (see _MapperBase): the beams' new-measurement evaluation and the
+    nodes' re-evaluation are split over the ranks and all-gathered; the
+    preprocess and the observation-GP fit run replicated. device
+    defaults to the card, or to the mesh's device.
     """
 
     def __init__(self, params: MapperParam = MAPPER_2D,
@@ -369,11 +529,12 @@ class GPisMap2D(_MapperBase):
                  tree: TreeParam = TREE_2D,
                  cap: CapacityParam = CAPACITY_2D,
                  strict_reeval: bool = False,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str | None = None,
+                 mesh=None):
         self.strict_reeval = strict_reeval
         # test search box: map_scale * 4 (GPisMap.cpp:680)
         self._setup(params, obs_param, tree, cap, 2, device,
-                    search_half=params.map_scale_param * 4.0)
+                    search_half=params.map_scale_param * 4.0, mesh=mesh)
 
     # ------------------------------------------------------------------
     def update(self, thetas: np.ndarray, ranges: np.ndarray,
@@ -400,24 +561,26 @@ class GPisMap2D(_MapperBase):
         rmax = float(rg_p[validh].max())
         g_max = nb // self.op.group_size + 2
 
+        # with a mesh, new measurements of this rank's beams
+        rows = None if self.mesh is None else self.mesh.local_rows(nb)
         if self.strict_reeval:
             _, obs, nm = mapper2d.frame_compute_2d(
                 self._t(th_p), self._t(rg_p), self._t(tr), self._t(rot),
-                self.p, self.op, g_max=g_max)
+                self.p, self.op, g_max=g_max, rows=rows)
             for c in self._inview_cells(tr, rot, rmax):
                 self._reeval_apply(obs, self.index.cell_nodes(c), tr, rot)
-            nm = _to_numpy(nm)
         else:
             node_ids = self._inview_node_ids(tr, rot, rmax)
             sel, nvalid = _pad_ids(node_ids)
             d = self.index.get_nodes(sel)
             rv, nm = mapper2d.frame_update_2d(
                 self._t(th_p), self._t(rg_p), self._t(tr), self._t(rot),
-                self._t(d["pos"]), self._t(d["grad"]), self._t(d["pos_sig"]),
-                self._t(d["grad_sig"]), self._t(nvalid), self.p, self.op,
-                g_max=g_max)
-            rv, nm = _to_numpy(rv), _to_numpy(nm)
-            self._apply_reeval(node_ids, rv)
+                *(self._shard(self._t(d[k])) for k in
+                  ("pos", "grad", "pos_sig", "grad_sig")),
+                self._shard(self._t(nvalid)), self.p, self.op, g_max=g_max,
+                rows=rows)
+            self._apply_reeval(node_ids, _to_numpy(self._gather(rv)))
+        nm = _to_numpy(self._gather(nm))
         n_new = self._apply_newmeas(nm)
 
         t1 = time.time()
@@ -468,16 +631,18 @@ class GPisMap2D(_MapperBase):
 
     def _reeval_apply(self, obs, node_ids, tr, rot) -> None:
         """reeval_2d of one cell's nodes against the frame's observation
-        GP, applied on the host index (the strict mode's step)."""
+        GP, applied on the host index (the strict mode's step); with a
+        mesh, of this rank's rows, all-gathered."""
         if len(node_ids) == 0:
             return
         sel, valid = _pad_ids(node_ids)
         d = self.index.get_nodes(sel)
         rv = mapper2d.reeval_2d(
-            obs, self._t(d["pos"]), self._t(d["grad"]),
-            self._t(d["pos_sig"]), self._t(d["grad_sig"]), self._t(valid),
-            self._t(tr), self._t(rot), self.p, self.op)
-        self._apply_reeval(node_ids, _to_numpy(rv))
+            obs, *(self._shard(self._t(d[k])) for k in
+                   ("pos", "grad", "pos_sig", "grad_sig")),
+            self._shard(self._t(valid)), self._t(tr), self._t(rot), self.p,
+            self.op)
+        self._apply_reeval(node_ids, _to_numpy(self._gather(rv)))
 
     # ------------------------------------------------------------------
     def _test_kwargs(self) -> dict:

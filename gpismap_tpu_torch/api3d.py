@@ -57,6 +57,13 @@ class GPisMap3D(_MapperBase):
         kept cell's nodes.
     The JAX package's "fused" scan, which "hybrid" replaced, raises
     NotImplementedError.
+
+    mesh (parallel.mesh.Mesh) runs the loop on every rank of the mesh
+    (see api._MapperBase): the "strict" and "snapshot" re-evaluations
+    split their nodes over the ranks and all-gather them; the frame's
+    observation GP and probe sweep, and the "hybrid" re-evaluation,
+    whose mover fix-up rounds depend on every node, run replicated.
+    device defaults to the card, or to the mesh's device.
     """
 
     def __init__(self, params: MapperParam = MAPPER_3D,
@@ -67,7 +74,8 @@ class GPisMap3D(_MapperBase):
                  compat_reloc: bool = True,
                  strict_reeval: bool = True,
                  reeval_mode: Optional[str] = None,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str | None = None,
+                 mesh=None):
         if reeval_mode is None:
             reeval_mode = "hybrid" if strict_reeval else "snapshot"
         if reeval_mode not in ("strict", "fused", "hybrid", "snapshot"):
@@ -82,7 +90,7 @@ class GPisMap3D(_MapperBase):
         self.compat_reloc = compat_reloc
         # test search box: C_leng * 3 (GPisMap3.cpp:811)
         self._setup(params, obs_param, tree, cap, 3, device,
-                    search_half=tree.cluster_halfleng * 3.0)
+                    search_half=tree.cluster_halfleng * 3.0, mesh=mesh)
         self._obs_chunk = (_CUDA_OBS_CHUNK if self.device.type == "cuda"
                            else 4096)
 
@@ -255,17 +263,18 @@ class GPisMap3D(_MapperBase):
                                      for c in kept]), tr, rot)
 
     def _reeval_apply(self, obs, node_ids, tr, rot) -> None:
-        """reeval_3d of one node batch, applied on the host index."""
+        """reeval_3d of one node batch, applied on the host index; with a
+        mesh, of this rank's rows, all-gathered."""
         if len(node_ids) == 0:
             return
         sel, valid = _pad_ids(node_ids)
         d = self.index.get_nodes(sel)
         rv = mapper3d.reeval_3d(
-            obs, self._t(d["pos"]), self._t(d["grad"]),
-            self._t(d["pos_sig"]), self._t(d["grad_sig"]), self._t(valid),
-            self._t(tr), self._t(rot), self.p, self.op,
-            chunk=self._obs_chunk, compat=self.compat_reloc)
-        self._apply_reeval(node_ids, _to_numpy(rv))
+            obs, *(self._shard(self._t(d[k])) for k in
+                   ("pos", "grad", "pos_sig", "grad_sig")),
+            self._shard(self._t(valid)), self._t(tr), self._t(rot), self.p,
+            self.op, chunk=self._obs_chunk, compat=self.compat_reloc)
+        self._apply_reeval(node_ids, _to_numpy(self._gather(rv)))
 
     def _dispatch_reeval_fused(self, obs, kept, tr, rot):
         """Gather the kept cells' nodes and run reeval_hybrid_3d on them.

@@ -18,9 +18,17 @@ relies on it. They keep no host copy of a differentiated value, and
 write in place only into tensors they have just made. The factor-cache
 upkeep (update_factors_from_l) writes into the cache in place and is
 not differentiable; it runs in the update, never under a gradient.
+
+The cache upkeep has two forms: update_factors_from_l inverts the
+retrain fit's own Cholesky factor (the default), update_factors
+re-factorizes the retrained cells, at a refresh_bucket's size where
+their support allows (with a mesh, or with GPISMAP_NODE_MIRROR=0, whose
+retrains keep no factor). map_test_sharded splits the queries over the
+ranks of a parallel.mesh.Mesh.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -70,21 +78,19 @@ def _scatter_rows(old: torch.Tensor, tgt: torch.Tensor,
     return ext.index_put_((tgt,), new)[:-1]
 
 
-def _retrain_impl(store: ClusterStore, slots: torch.Tensor,
-                  slot_ok: torch.Tensor, x: torch.Tensor, grad: torch.Tensor,
-                  val: torch.Tensor, sigx: torch.Tensor,
-                  siggrad: torch.Tensor, valid: torch.Tensor, scale):
-    """Fit a batch of cluster GPs and scatter them into their slots
-    (the batched form of updateGPs, GPisMap.cpp:596-663).
+def fit_cells(x: torch.Tensor, grad: torch.Tensor, val: torch.Tensor,
+              sigx: torch.Tensor, siggrad: torch.Tensor, valid: torch.Tensor,
+              scale, m: int):
+    """Fit a batch of cluster GPs (the batched form of updateGPs,
+    GPisMap.cpp:596-663) and lay each out as a store row of M support
+    rows.
 
-    slots: [B] destination slot per cell (rows with slot_ok False are
-    dropped). The batch may carry fewer support rows than the store
-    (x: [B, mb, D], mb <= M): the fit then runs at the small size and is
-    zero-padded into the store layout, which identity-row masking makes
-    exact. Returns (new store, Cholesky factor l [B, mb(1+D), mb(1+D)]).
-    """
+    The batch may carry fewer support rows than the store (x: [B, mb, D],
+    mb <= m): the fit then runs at the small size and is zero-padded into
+    the store layout, which identity-row masking makes exact. Returns
+    (rows, l): rows a ClusterStore of B rows (scatter_cells writes them
+    into their slots), l the Cholesky factor [B, mb(1+D), mb(1+D)]."""
     st = gp.fit_ongpis(x, grad, val, sigx, siggrad, valid, scale)
-    m = store.x.shape[1]
     mb = x.shape[1]
     d = x.shape[-1]
     alpha = st.alpha
@@ -101,17 +107,29 @@ def _retrain_impl(store: ClusterStore, slots: torch.Tensor,
         # to M (padded rows have alpha == 0 by masking)
         alpha = padm(alpha.reshape(-1, 1 + d, mb).transpose(1, 2))
         alpha = alpha.transpose(1, 2).reshape(-1, (1 + d) * m)
+    return ClusterStore(x=x, grad=grad, val=val, sigx=sigx, siggrad=siggrad,
+                        valid=valid, alpha=alpha,
+                        trained=torch.any(valid, -1)), st.l
+
+
+def scatter_cells(store: ClusterStore, slots: torch.Tensor,
+                  slot_ok: torch.Tensor, rows: ClusterStore) -> ClusterStore:
+    """The store with fit_cells rows written into their slots [B] (rows
+    with slot_ok False are dropped)."""
     tgt = torch.where(slot_ok, slots.long(), store.x.shape[0])
-    new_store = ClusterStore(
-        x=_scatter_rows(store.x, tgt, x),
-        grad=_scatter_rows(store.grad, tgt, grad),
-        val=_scatter_rows(store.val, tgt, val),
-        sigx=_scatter_rows(store.sigx, tgt, sigx),
-        siggrad=_scatter_rows(store.siggrad, tgt, siggrad),
-        valid=_scatter_rows(store.valid, tgt, valid),
-        alpha=_scatter_rows(store.alpha, tgt, alpha),
-        trained=_scatter_rows(store.trained, tgt, torch.any(valid, -1)))
-    return new_store, st.l
+    return ClusterStore(*(_scatter_rows(old, tgt, new)
+                          for old, new in zip(store, rows)))
+
+
+def _retrain_impl(store: ClusterStore, slots: torch.Tensor,
+                  slot_ok: torch.Tensor, x: torch.Tensor, grad: torch.Tensor,
+                  val: torch.Tensor, sigx: torch.Tensor,
+                  siggrad: torch.Tensor, valid: torch.Tensor, scale):
+    """fit_cells, then scatter_cells into the slots [B]. Returns (new
+    store, Cholesky factor l [B, mb(1+D), mb(1+D)])."""
+    rows, l = fit_cells(x, grad, val, sigx, siggrad, valid, scale,
+                        store.x.shape[1])
+    return scatter_cells(store, slots, slot_ok, rows), l
 
 
 def retrain_cells(store: ClusterStore, slots: torch.Tensor,
@@ -177,10 +195,17 @@ def retrain_cells_from_mirror_with_l(store: ClusterStore,
     mirror by the support ids sup [B, mb] (-1 = padding), returning also
     the fit's Cholesky factor l [B, (1+D)mb, (1+D)mb], which the factor
     cache refresh inverts (update_factors_from_l). Returns (store, l)."""
+    return _retrain_impl(store, slots, slot_ok,
+                         *mirror_support(mirror, sup), scale)
+
+
+def mirror_support(mirror: NodeMirror, sup: torch.Tensor):
+    """The support of the ids sup [B, mb] (-1 = padding) gathered from the
+    node mirror: (x, grad, val, sigx, siggrad, valid), fit_cells' first
+    six arguments."""
     c = torch.clamp(sup, 0, mirror.val.shape[0] - 1).long()
-    return _retrain_impl(store, slots, slot_ok, mirror.pos[c],
-                         mirror.grad[c], mirror.val[c], mirror.pos_sig[c],
-                         mirror.grad_sig[c], sup >= 0, scale)
+    return (mirror.pos[c], mirror.grad[c], mirror.val[c], mirror.pos_sig[c],
+            mirror.grad_sig[c], sup >= 0)
 
 
 def retrain_cells_from_mirror(store: ClusterStore, mirror: NodeMirror,
@@ -247,18 +272,78 @@ def _embed_linv(linv_s: torch.Tensor, mp: int, d: int) -> torch.Tensor:
     return full
 
 
+def refresh_bucket(mb, m: int, d: int):
+    """The smallest support-row count >= mb whose system size (1+d)*mb is
+    a multiple of 128 (the JAX package's blocked-factorization
+    granularity); None when only the full capacity m qualifies, where the
+    bucketed refresh has nothing to save."""
+    if mb is None:
+        return None
+    step = 128 // math.gcd(1 + d, 128)      # d=3 -> 32; d=2 -> 128
+    mb2 = ((int(mb) + step - 1) // step) * step
+    return mb2 if 0 < mb2 < m else None
+
+
+def _factorize_cells_bucketed(store: ClusterStore, slots: torch.Tensor,
+                              scale, mb: int) -> torch.Tensor:
+    """L^-1 for slots whose valid support lies in rows [:mb], computed at
+    the small size (1+D)*mb and embedded into the full layout [S, M', M']
+    by _embed_linv: equal to _factorize_cells up to f32 rounding (the two
+    sizes group the reductions differently), at (mb/M)^3 of its
+    operations. Entries with slot < 0 get identity factors."""
+    d = store.x.shape[-1]
+    sc = torch.clamp(slots, 0, store.x.shape[0] - 1).long()
+    vl = store.valid[sc][:, :mb] & (slots >= 0)[:, None]
+    siggrad = store.siggrad[sc][:, :mb]
+    gradflag, sigx = gp.ongpis_prepare(store.grad[sc][:, :mb],
+                                       store.sigx[sc][:, :mb], siggrad, vl)
+    k = kernels.matern32_deriv_train_cov(store.x[sc][:, :mb], sigx, siggrad,
+                                         gradflag, vl, scale)
+    return _embed_linv(gp.linv_from_chol(gp._chol(k)), store.alpha.shape[-1],
+                       d)
+
+
+def _cache_rows(uniq: torch.Tensor, slots: torch.Tensor):
+    """(rows of slots [B] that are in the cache key uniq, their cache
+    positions): the searchsorted hit test of the cache upkeep."""
+    sl = torch.where(slots >= 0, slots, _INT32_MAX).to(torch.int32)
+    pos = torch.clamp(torch.searchsorted(uniq, sl), 0, uniq.shape[0] - 1)
+    hit = torch.nonzero((sl < _INT32_MAX) & (uniq[pos] == sl)).reshape(-1)
+    return hit, pos[hit]
+
+
+def update_factors(store: ClusterStore, linv_buf: torch.Tensor,
+                   uniq: torch.Tensor, slots: torch.Tensor, scale,
+                   mb=None) -> torch.Tensor:
+    """Factor-cache refresh by re-factorizing the given (just-retrained)
+    slots: the incremental twin of factorize_slots, for retrains that
+    keep no Cholesky factor (a mesh, or the node mirror off).
+
+    slots [B] (-1 padded) are looked up in uniq; the rows that hit are
+    factorized and written in place into linv_buf, the misses are dropped
+    (the JAX package drops them through an out-of-range scatter). mb (a
+    refresh_bucket) factorizes at (1+D)*mb rows when every refreshed
+    cell's valid support lies in its first mb rows. Returns linv_buf."""
+    hit, pos = _cache_rows(uniq, slots)
+    if len(hit):
+        keep = slots[hit]
+        if mb is not None and mb < store.x.shape[1]:
+            new = _factorize_cells_bucketed(store, keep, scale, mb)
+        else:
+            new = _factorize_cells(store, keep, scale)
+        linv_buf.index_copy_(0, pos, new)
+    return linv_buf
+
+
 def _update_factors_from_l_impl(linv_buf: torch.Tensor, uniq: torch.Tensor,
                                 slots: torch.Tensor, l: torch.Tensor,
                                 d: int) -> torch.Tensor:
     """Body of update_factors_from_l: L^-1 of every row of l, embedded
     into the cache layout and copied in place into the rows of linv_buf
     whose slot is in uniq; rows whose slot misses uniq are dropped."""
-    max_active = linv_buf.shape[0]
-    sl = torch.where(slots >= 0, slots, _INT32_MAX).to(torch.int32)
-    pos = torch.clamp(torch.searchsorted(uniq, sl), 0, max_active - 1)
-    hit = torch.nonzero((sl < _INT32_MAX) & (uniq[pos] == sl)).reshape(-1)
+    hit, pos = _cache_rows(uniq, slots)
     linv_full = _embed_linv(gp.linv_from_chol(l), linv_buf.shape[-1], d)
-    linv_buf.index_copy_(0, pos[hit], linv_full[hit])
+    linv_buf.index_copy_(0, pos, linv_full[hit])
     return linv_buf
 
 
@@ -698,6 +783,29 @@ def map_test(store: ClusterStore, grid: torch.Tensor, q: torch.Tensor,
     vg_out = torch.where(bad[:, None], 0.0, vg_out)
     return f_out, g_out, vf_out, vg_out, TestInfo(
         n_dropped=n_dropped, n_pairs=n_pairs, n_phase2=n_phase2)
+
+
+def map_test_sharded(store: ClusterStore, grid: torch.Tensor,
+                     q: torch.Tensor, mesh, **kw):
+    """map_test with the query batch q [Q, D] split over the ranks of a
+    mesh (parallel.mesh.Mesh), the store, grid and factors replicated.
+
+    Each rank plans and evaluates its own contiguous shard of Q / size
+    queries with its own tile plan (the per-thread chunking of the
+    reference's test(), GPisMap.cpp:765-810), then the shards are
+    all-gathered in one collective and the three TestInfo counters
+    summed in one more. Every rank returns the whole batch's results.
+    Q must divide by the mesh size."""
+    nq, d = q.shape
+    if nq % mesh.size:
+        raise ValueError(f"{nq} queries do not split over {mesh.size} ranks")
+    f, g, vf, vg, info = map_test(store, grid, q[mesh.local_rows(nq)], **kw)
+    out = mesh.all_gather(torch.cat([f[:, None], g, vf[:, None], vg], 1))
+    iv = mesh.all_reduce_sum(torch.stack(
+        [info.n_dropped, info.n_pairs, info.n_phase2]).to(torch.int64))
+    iv = iv.to(torch.int32)
+    return out[:, 0], out[:, 1:1 + d], out[:, 1 + d], out[:, 2 + d:], \
+        TestInfo(n_dropped=iv[0], n_pairs=iv[1], n_phase2=iv[2])
 
 
 def build_grid_device(coords: torch.Tensor, slots: torch.Tensor, dim: int,

@@ -250,14 +250,18 @@ def newmeas_2d(obs: obsgp.ObsGP1DState, prep: Preproc2D, rot: torch.Tensor,
 
 def frame_compute_2d(theta: torch.Tensor, rng: torch.Tensor,
                      tr: torch.Tensor, rot: torch.Tensor, mp: MapperParam,
-                     op: ObsGPParam, g_max: int, chunk: int = 1024):
+                     op: ObsGPParam, g_max: int, chunk: int = 1024,
+                     rows: slice | None = None):
     """The tree-independent frame stages: preprocess, the obs-GP fit and
     the new-measurement evaluation (the strict mode re-evaluates the
-    nodes cell by cell after it). Returns (Preproc2D, ObsGP1DState,
-    NewMeas2D)."""
+    nodes cell by cell after it). rows: the beams whose new measurements
+    to evaluate (None: all of them; a mesh rank passes its share).
+    Returns (Preproc2D, ObsGP1DState, NewMeas2D)."""
     prep = preprocess_2d(theta, rng, tr, rot, mp)
     obs = obsgp.fit_obsgp1d(prep.theta, prep.f, prep.valid, op, g_max=g_max)
-    nm = newmeas_2d(obs, prep, rot, mp, op, chunk)
+    beams = prep if rows is None else Preproc2D(
+        *(x[rows] if x.dim() else x for x in prep))
+    nm = newmeas_2d(obs, beams, rot, mp, op, chunk)
     return prep, obs, nm
 
 
@@ -266,11 +270,13 @@ def frame_update_2d(theta: torch.Tensor, rng: torch.Tensor, tr: torch.Tensor,
                     node_grad: torch.Tensor, node_ps: torch.Tensor,
                     node_gs: torch.Tensor, node_valid: torch.Tensor,
                     mp: MapperParam, op: ObsGPParam, g_max: int,
-                    chunk: int = 1024):
+                    chunk: int = 1024, rows: slice | None = None):
     """The whole per-frame device compute: preprocess, obs-GP fit,
     re-evaluation of the host-gathered in-view nodes, and
-    new-measurement evaluation. Returns (Reeval2D, NewMeas2D)."""
-    _, obs, nm = frame_compute_2d(theta, rng, tr, rot, mp, op, g_max, chunk)
+    new-measurement evaluation of the beams in rows (frame_compute_2d).
+    Returns (Reeval2D, NewMeas2D)."""
+    _, obs, nm = frame_compute_2d(theta, rng, tr, rot, mp, op, g_max, chunk,
+                                  rows)
     rv = reeval_2d(obs, node_pos, node_grad, node_ps, node_gs, node_valid,
                    tr, rot, mp, op, chunk)
     return rv, nm

@@ -1,7 +1,8 @@
 """The non-default re-evaluation modes: the PyTorch port vs the JAX package
 in the same mode, over the tiny frames of tests/test_torch_slice.py (2D,
 strict_reeval=True) and tests/test_torch_slice3d.py (3D, "strict" and
-"snapshot"), on the CPU, at those files' tolerances.
+"snapshot"), on the CPU, at those files' tolerances. The maps come from
+tests/torch_maps.py, built once per process.
 
 2D strict re-evaluates the in-view cells one by one, each cell's nodes
 gathered after the earlier cells' mutations; 3D "strict" does the same
@@ -13,10 +14,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import torch_scenes  # noqa: E402
-from gpismap_tpu.api import GPisMap2D as JaxMapper2D  # noqa: E402
+import torch_maps  # noqa: E402
 from gpismap_tpu.api3d import GPisMap3D as JaxMapper3D  # noqa: E402
-from gpismap_tpu.config import CameraParam as JaxCamera  # noqa: E402
 from gpismap_tpu.config import CapacityParam as JaxCapacity  # noqa: E402
 from gpismap_tpu_torch import (CameraParam, CapacityParam,  # noqa: E402
                                GPisMap2D, GPisMap3D)
@@ -31,18 +30,14 @@ from test_torch_slice3d import _queries as _queries_3d  # noqa: E402
 
 @pytest.fixture(scope="module")
 def frames_3d():
-    return torch_scenes.object_frames(3, CameraParam(**CAM))
+    return torch_maps.frames(3, 3)
 
 
 def test_strict_2d_matches_jax():
     """GPisMap2D(strict_reeval=True) after 3 room frames: the same nodes,
     store and field as the JAX package's strict mapper."""
-    mj = JaxMapper2D(cap=JaxCapacity(**TINY_2D), strict_reeval=True)
-    mt = GPisMap2D(cap=CapacityParam(**TINY_2D), strict_reeval=True,
-                   device="cpu")
-    for frame in torch_scenes.room_frames(3, 181):
-        mj.update(*frame)
-        mt.update(*frame)
+    mj = torch_maps.built(2, 3, jax=True, mode="strict")
+    mt = torch_maps.built(2, 3, mode="strict")
     assert mt.num_nodes == mj.num_nodes > 0
     np.testing.assert_allclose(_sorted_points(mt), _sorted_points(mj),
                                rtol=0, atol=1e-5)
@@ -58,7 +53,7 @@ def test_strict_2d_matches_jax():
 
 
 def test_strict_2d_update_batch_matches_update():
-    frames = torch_scenes.room_frames(2, 181)
+    frames = torch_maps.frames(2, 2)
     a = GPisMap2D(cap=CapacityParam(**TINY_2D), strict_reeval=True,
                   device="cpu")
     b = GPisMap2D(cap=CapacityParam(**TINY_2D), strict_reeval=True,
@@ -75,14 +70,8 @@ def test_mode_3d_matches_jax(frames_3d, mode):
     """GPisMap3D(reeval_mode=mode) after 3 frames: the same node set,
     noises and normals, and the same field, as the JAX package's mapper
     in that mode."""
-    caps = dict(TINY_3D)
-    mj = JaxMapper3D(cap=JaxCapacity(**caps), camera=JaxCamera(**CAM),
-                     reeval_mode=mode)
-    mt = GPisMap3D(cap=CapacityParam(**caps), camera=CameraParam(**CAM),
-                   reeval_mode=mode, device="cpu")
-    for f in frames_3d:
-        mj.update(*f)
-        mt.update(*f)
+    mj = torch_maps.built(3, 3, jax=True, mode=mode)
+    mt = torch_maps.built(3, 3, mode=mode)
     assert mt.reeval_mode == mj.reeval_mode == mode
     assert mt.num_nodes == mj.num_nodes > 100
     dj, dt = mj.index.dump_nodes(), mt.index.dump_nodes()
@@ -99,15 +88,34 @@ def test_mode_3d_matches_jax(frames_3d, mode):
 
 
 def test_strict_3d_update_batch_matches_update(frames_3d):
-    a = GPisMap3D(cap=CapacityParam(**TINY_3D), camera=CameraParam(**CAM),
-                  reeval_mode="strict", device="cpu")
+    a = torch_maps.built(3, 3, mode="strict")
     b = GPisMap3D(cap=CapacityParam(**TINY_3D), reeval_mode="strict",
                   device="cpu")
-    for f in frames_3d[:2]:
-        a.update(*f)
-    b.update_batch([(d, p, CameraParam(**CAM)) for d, p in frames_3d[:2]])
+    b.update_batch([(d, p, CameraParam(**CAM)) for d, p in frames_3d])
     q = _queries_3d(200)
     np.testing.assert_array_equal(a.test(q), b.test(q))
+
+
+@pytest.mark.parametrize("mode", ["strict", "snapshot"])
+def test_other_reeval_modes_are_not_ported(frames_3d, mode):
+    """Of the JAX package's other modes only "fused" is left out
+    (tests/test_torch_slice3d.py checks that it raises). "strict", the
+    host replay of the per-cell order, gives the hybrid map (the order
+    hybrid computes in one pass); "snapshot" maps the scene too. Moved
+    here from tests/test_torch_slice3d.py so that the strict replay runs
+    once (torch_maps.built); each against the JAX package in its own
+    mode: test_mode_3d_matches_jax."""
+    hybrid = torch_maps.built(3, 3)
+    m = torch_maps.built(3, 3, mode=mode)
+    q = _queries_3d()
+    r = m.test(q)
+    if mode == "strict":
+        np.testing.assert_array_equal(m.index.dump_nodes()["alive"],
+                                      hybrid.index.dump_nodes()["alive"])
+        _check_field(r, hybrid.test(q))
+    else:
+        assert m.num_nodes > 100 and np.isfinite(r).all()
+        assert (r[:, 4] < 1.0 + m.p.map_noise_param).mean() > 0.5
 
 
 @pytest.mark.parametrize("strict,mode,want", [

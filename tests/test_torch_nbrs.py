@@ -21,50 +21,32 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 import torch_scenes  # noqa: E402
-from gpismap_tpu.api import GPisMap2D as JaxMapper2D  # noqa: E402
-from gpismap_tpu.api3d import GPisMap3D as JaxMapper3D  # noqa: E402
-from gpismap_tpu.config import CameraParam as JaxCamera  # noqa: E402
-from gpismap_tpu.config import CapacityParam as JaxCapacity  # noqa: E402
+import torch_maps  # noqa: E402
 from gpismap_tpu.models import cluster as jc  # noqa: E402
-from gpismap_tpu_torch import (CameraParam, CapacityParam,  # noqa: E402
-                               GPisMap2D, GPisMap3D, render)
+from gpismap_tpu_torch import render  # noqa: E402
 from gpismap_tpu_torch.models import cluster as tc  # noqa: E402
-from test_torch_slice import TINY as TINY_2D  # noqa: E402
 from test_torch_slice import TOL  # noqa: E402
 from test_torch_slice import _queries as _queries_2d  # noqa: E402
-from test_torch_slice3d import CAM, _check_field  # noqa: E402
-from test_torch_slice3d import TINY as TINY_3D  # noqa: E402
+from test_torch_slice3d import _check_field  # noqa: E402
 from test_torch_slice3d import _queries as _queries_3d  # noqa: E402
+
+# frames per map: the room's 3, the object's 2
+N_FRAMES = {2: 3, 3: 2}
 
 
 def _frames(dim):
-    if dim == 2:
-        return torch_scenes.room_frames(3, 181)
-    return torch_scenes.object_frames(2, CameraParam(**CAM))
+    return torch_maps.frames(dim, N_FRAMES[dim])
 
 
 def _make(dim, jax=False, **cap):
-    if dim == 2:
-        caps = dict(TINY_2D, **cap)
-        return (JaxMapper2D(cap=JaxCapacity(**caps)) if jax else
-                GPisMap2D(cap=CapacityParam(**caps), device="cpu"))
-    caps = dict(TINY_3D, **cap)
-    return (JaxMapper3D(cap=JaxCapacity(**caps), camera=JaxCamera(**CAM))
-            if jax else GPisMap3D(cap=CapacityParam(**caps),
-                                  camera=CameraParam(**CAM), device="cpu"))
+    return torch_maps.make(dim, jax, **cap)
 
 
 @pytest.fixture(scope="module")
 def maps():
     """The port's 2D and 3D maps (window path: the table is off on the
     CPU)."""
-    out = {}
-    for dim in (2, 3):
-        m = _make(dim)
-        for f in _frames(dim):
-            m.update(*f)
-        out[dim] = m
-    return out
+    return {dim: torch_maps.built(dim, N_FRAMES[dim]) for dim in (2, 3)}
 
 
 def _queries(dim):

@@ -154,17 +154,23 @@ def test_update_batch_and_reset():
 def test_import_leaves_jax_out():
     """The port imports torch and never jax (the GPU host has none), nor
     any module of the JAX package: after the import of the package, its
-    render, checkpoint and mex modules, and a construction of each
-    mapper on the CPU, no loaded module comes from gpismap_tpu/."""
+    render, checkpoint, mex, parallel, datasets and viz modules, and a
+    construction of each mapper on the CPU (one on a size-1 mesh), no
+    loaded module comes from gpismap_tpu/. viz loads no matplotlib
+    until a plot helper draws."""
     code = (
         "import os, sys\n"
         "import gpismap_tpu_torch as g, gpismap_tpu_torch.convert\n"
         "import gpismap_tpu_torch.render, gpismap_tpu_torch.mex_compat\n"
         "import gpismap_tpu_torch.runtime.checkpoint\n"
-        "g.GPisMap2D(device='cpu'); g.GPisMap3D(device='cpu')\n"
+        "import gpismap_tpu_torch.parallel.multihost as mh\n"
+        "import gpismap_tpu_torch.datasets, gpismap_tpu_torch.viz\n"
+        "g.GPisMap2D(device='cpu')\n"
+        "g.GPisMap3D(mesh=mh.global_data_mesh(device='cpu'))\n"
         "ref = os.path.join(os.getcwd(), 'gpismap_tpu') + os.sep\n"
         "bad = [n for n, m in list(sys.modules.items())\n"
-        "       if n == 'jax' or n.startswith(('jax.', 'jaxlib'))\n"
+        "       if n == 'jax' or n.startswith(('jax.', 'jaxlib',\n"
+        "                                      'matplotlib'))\n"
         "       or os.path.abspath(getattr(m, '__file__', None) or '')\n"
         "       .startswith(ref)]\n"
         "print(bad); sys.exit(1 if bad else 0)")
