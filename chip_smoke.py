@@ -75,6 +75,23 @@ production shapes:
   3D update with GPISMAP_NODE_MIRROR=0 against phases 7-8 (the first
   test() bitwise equal, after the refresh MESH_RTOL/MESH_ATOL).
 
+  The bf16 variant (phase 17): 17a, the tile kernel's bf16 instance on
+  the tile plans of phases 4 (d=2) and 7 (d=3) against the bf16 plain
+  version, each variance within its limit
+  (tests/torch_bf16_checks.variance_limits: KERNEL_TOL of its column's
+  f32 summation scale plus a bf16 step of each K* entry that two correct
+  f32 evaluations may round to different bf16 values), f and g bitwise
+  the f32 kernel's, the variances off the f32 kernel's somewhere (their
+  distance printed beside the plain versions'), launches counted apart,
+  bitwise deterministic and independent of the order of the tiles; 17b,
+  test() with GPISMAP_PALLAS_BF16=1 on the maps of phases 4 and 7: only
+  the bf16 kernel launched, the queries whose var_thre blend choice
+  flipped counted, the queries that take the nearest cell's result in
+  both runs held to f and g bitwise against the default test() (their
+  variances' distance printed) and to their variances' limits against
+  test() with the bf16 plain version as its tile op, and the warm test()
+  timed with the switch on and off.
+
 Usage: python3 chip_smoke.py    (from the repository root; needs CUDA)
 
 The last line of standard output is
@@ -173,11 +190,33 @@ MESH_RTOL = 1e-4
 MESH_ATOL = 5e-4
 # sharded_map_test vs map_test on one store (tests/test_parallel.py:66-69)
 SHARDED_TOL = 1e-5
+# the bf16 variant (phase 17): the bf16 kernel's variances against the
+# bf16 plain version's are held to a limit per variance
+# (tests/torch_bf16_checks.variance_limits): KERNEL_TOL of the column's
+# f32 summation scale, plus one bf16 step of each K* entry that two
+# correct f32 evaluations may round to different bf16 values. The JAX
+# package's gate of the bf16 variances against the f32 ones
+# (tests/test_pallas.py:76-78) is printed, for the kernel and for the
+# plain version: the JAX package set it on a random M=16 case, and on the
+# smoke's maps the bf16 function itself (the plain versions) exceeds it
+# (PERF.md)
+BF16_VF_TOL = 2e-2
+BF16_VG_TOL = 5e-2
 
 # peak rates of one H100 SXM at its 700 W limit (NVIDIA data sheet): fp32
 # outside the tensor cores (every kernel here is fp32 FMAs) and HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+# dense bf16 on the tensor cores (the bf16 variant's variance product)
+PEAK_BF16_FLOPS = 989e12
+# fp32 operations the bf16 variant needs beside its product: per (kept
+# support node, query) pair the terms its (1 + D)^2 K* entries share, the
+# squared distance (3D - 1), sqrt, a r and exp (2), 1 + a r, a^2 e and
+# a^3 e / r (4); per K* entry its formula from those terms (about 2: a
+# product with a difference), the mean's and the square's multiply-adds
+# (2 each)
+PAIR_FLOPS = {d: 3 * d + 6 for d in (2, 3)}
+ENTRY_FLOPS = 6
 
 
 def fail(msg: str):
@@ -304,6 +343,23 @@ def tile_work(args, kwargs):
     return flops, nbytes
 
 
+def tile_work_bf16(args, kwargs):
+    """(bf16 tensor-core operations, fp32 operations, bytes) that the bf16
+    variant needs on these inputs: the variance product over each active
+    tile's n unmasked rows of L^-1's lower triangle; per kept node and
+    query PAIR_FLOPS, per K* entry ENTRY_FLOPS (T(1+D) columns of n
+    entries); tile_work's bytes (L^-1 is read as f32 in both)."""
+    tile_seg, valid, t = args[0], args[5], args[6].shape[-1]
+    d = kwargs["d"]
+    segs = tile_seg[tile_seg >= 0].long()
+    n = unmasked_rows(args, kwargs)
+    nodes = (valid > 0.5).sum(-1).double()
+    tensor = 2.0 * t * (1 + d) * float((n * (n + 1) / 2)[segs].sum())
+    fp32 = t * (PAIR_FLOPS[d] * float(nodes[segs].sum())
+                + ENTRY_FLOPS * (1 + d) * float(n[segs].sum()))
+    return tensor, fp32, tile_work(args, kwargs)[1]
+
+
 def row_shares(args, kwargs) -> str:
     """The mean share of valid support nodes (valid summed over M) and of
     unmasked K* rows (unmasked_rows over MP) of the cells the active tiles
@@ -325,6 +381,18 @@ def tile_bound(args, kwargs):
     return bound(*tile_work(args, kwargs))
 
 
+def tile_bound_bf16(args, kwargs):
+    """The bf16 variant's least time on these inputs: the variance
+    product at the tensor cores' bf16 rate plus the K* entries, mean and
+    squares at the fp32 rate, or the bytes at the memory rate
+    (tile_work_bf16): (ms, "operations" or "bytes")."""
+    tensor, fp32, nbytes = tile_work_bf16(args, kwargs)
+    t_ops = tensor / PEAK_BF16_FLOPS + fp32 / PEAK_FP32_FLOPS
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def tile_rate(tile_ops, args, kwargs, ms):
     """The kernel's rate on tile_work's operation count, and the dynamic
     shared memory of one of its blocks at this M."""
@@ -342,16 +410,17 @@ def factor_bound(x: torch.Tensor):
 
 
 def kernel_entry(name, replaces, launches_by_path, err, ms, plain_ms, bnd,
-                 library_ms):
-    """One kernel of the kernels line: `launches` is its count on the
-    update->test path, `launches_by_path` its count on each path, each
-    counted from 0 just before that path ran."""
+                 library_ms, main="update_test"):
+    """One kernel of the kernels line: `launches` is its count on its main
+    path (the update->test path, or the bf16 variant's test() with the
+    switch on), `launches_by_path` its count on each path, each counted
+    from 0 just before that path ran."""
     source = ("gpismap_tpu_torch/csrc/tile_eval.cu"
               if name.startswith("tile_eval")
               else "gpismap_tpu_torch/csrc/chol.cu")
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": launches_by_path["update_test"],
+            "launches": launches_by_path[main],
             "launches_by_path": launches_by_path, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
             "bound_by": bnd[1], "library_ms": library_ms}
@@ -366,6 +435,8 @@ def ptxas_lines(name: str, log: str):
     for line in log.splitlines():
         if "Compiling entry function" in line:
             fn = next((label for key, label in (
+                ("ILi2ELb1E", "tile_eval_bf16 d=2"),
+                ("ILi3ELb1E", "tile_eval_bf16 d=3"),
                 ("ILi2E", "tile_eval d=2"), ("ILi3E", "tile_eval d=3"),
                 ("chol_init_kernel", "chol_init_kernel"),
                 ("chol_panel_kernel", "chol_panel_kernel"),
@@ -551,7 +622,7 @@ def run_3d(card, torch_scenes, chol_ops, tile_ops, cluster, convert):
     if m.device.type != "cuda":
         fail(f"GPisMap3D() runs on {m.device}, not the card")
     m.set_camera(1, "bigbird")
-    tile_ops.launches = 0
+    tile_ops.launches = tile_ops.launches_bf16 = 0
     chol_ops.chol_launches = chol_ops.linv_launches = 0
     by_size = BySize(chol_ops).__enter__()    # to phase 8's update
     torch.cuda.synchronize()
@@ -582,6 +653,9 @@ def run_3d(card, torch_scenes, chol_ops, tile_ops, cluster, convert):
           f"in the two tests ({card})", flush=True)
     if tst[0] < 1:
         fail("test() did not launch the d=3 tile kernel")
+    tst16 = tile_ops.launches_bf16
+    if tst16:
+        fail("the default 3D path launched the bf16 tile kernel")
     if upd[1] + tst[1] < 1 or upd[2] + tst[2] < 1:
         fail("the 3D main path did not launch the chol and linv kernels")
     if m._factors is None:
@@ -677,7 +751,7 @@ def run_3d(card, torch_scenes, chol_ops, tile_ops, cluster, convert):
             > KERNEL_TOL:
         fail(f"test() through the refreshed 3D cache differs by "
              f"{d_refresh}")
-    out.update(tile_launches=tst[0],
+    out.update(tile_launches=tst[0], tile_bf16_launches=tst16,
                chol_launches=upd[1] + tst[1] + refresh[0],
                linv_launches=upd[2] + tst[2] + refresh[1],
                chol640_launches=by_size.at("chol", 640),
@@ -1857,6 +1931,293 @@ def run_mesh(card, m2, res2d, qr2, grid, m3, r3, volume, cluster,
           f"memory {peak:.2f} GiB per rank", flush=True)
     return paths
 
+class Returns(Capture):
+    """Wraps module.name to keep the return value of every call."""
+
+    def __call__(self, *args, **kwargs):
+        out = self.orig(*args, **kwargs)
+        self.calls.append(out)
+        return out
+
+
+def bf16_gate(out, ref, act):
+    """(var_f, var_grad) largest absolute differences of a bf16 evaluation
+    from an f32 one on the rows `act`, and whether they are within the
+    JAX package's bf16 gate, BF16_VF_TOL and BF16_VG_TOL (absolute)."""
+    dv = [float((a[act] - b[act]).abs().max()) if bool(act.any()) else 0.0
+          for a, b in zip(out, ref)]
+    return dv, dv[0] <= BF16_VF_TOL and dv[1] <= BF16_VG_TOL
+
+
+def check_bf16_kernel(card, tile_ops, label, captured):
+    """Phase 17a: the bf16 kernel on a captured tile plan against the bf16
+    plain version (within torch_bf16_checks.variance_limits), the f32
+    kernel and itself. Returns its kernel-line numbers."""
+    import torch_bf16_checks as bc
+    args, kwargs = captured
+    kwargs = {k: v for k, v in kwargs.items() if k != "bf16"}
+    d = kwargs["d"]
+    act = args[0] >= 0
+    before = (tile_ops.launches, tile_ops.launches_bf16)
+    out = tile_ops.tile_eval(*args, **kwargs, bf16=True)
+    torch.cuda.synchronize()
+    counted = (tile_ops.launches - before[0],
+               tile_ops.launches_bf16 - before[1])
+    f32 = tile_ops.tile_eval(*args, **kwargs)
+    ref = tile_ops.tile_eval_reference(*args, **kwargs, bf16=True)
+    ref32 = tile_ops.tile_eval_reference(*args, **kwargs)
+    lims = bc.variance_limits(args, kwargs, KERNEL_TOL)
+    model = bc.kstar_model_ratio(args, d, kwargs["scale"])
+    amb = lims[2] & act[:, None, None]
+    clean = (~lims[2]) & act[:, None, None]
+    cols = ((act, clean[:, 0]), (act, clean[:, 1:]))
+
+    def most(x, mask):
+        return float(x[mask].max()) if bool(mask.any()) else 0.0
+    over = [most(x, c[0]) for x, c in zip(bc.shares(out, ref, lims), cols)]
+    over_clean = [most(x, c[1])
+                  for x, c in zip(bc.shares(out, ref, lims), cols)]
+    f32_over = [most(x, c[0])
+                for x, c in zip(bc.shares(f32, ref, lims), cols)]
+    gaps = [(a - b).abs() for a, b in zip(out[2:], ref[2:])]
+    err = [most(x, c[0]) for x, c in zip(gaps, cols)]
+    err_clean = [most(x, c[1]) for x, c in zip(gaps, cols)]
+    same_fg = all(torch.equal(a[act], b[act])
+                  for a, b in zip(out[:2], f32[:2]))
+    dv, gate_ok = bf16_gate(out[2:], f32[2:], act)
+    dv_plain, plain_ok = bf16_gate(ref[2:], ref32[2:], act)
+    del ref32
+    moved = bool((out[2][act] != f32[2][act]).any())
+    again = tile_ops.tile_eval(*args, **kwargs, bf16=True)
+    perm = torch.randperm(args[0].shape[0], generator=torch.Generator()
+                          .manual_seed(17)).to(args[0].device)
+    shuf = (args[0][perm],) + args[1:6] + (args[6][perm].contiguous(),)
+    moved_tiles = tile_ops.tile_eval(*shuf, **kwargs, bf16=True)
+    pa = act[perm]
+    determ = all(torch.equal(a[act], b[act]) for a, b in zip(out, again))
+    order_free = all(torch.equal(a[perm][pa], b[pa])
+                     for a, b in zip(out, moved_tiles))
+    # f32 and bf16 in turns: f32, bf16, bf16, f32
+    ms32a = cuda_ms(lambda: tile_ops.tile_eval(*args, **kwargs), 5)
+    ms16 = cuda_ms(lambda: tile_ops.tile_eval(*args, **kwargs, bf16=True),
+                   5)
+    ms16b = cuda_ms(lambda: tile_ops.tile_eval(*args, **kwargs, bf16=True),
+                    5)
+    ms32b = cuda_ms(lambda: tile_ops.tile_eval(*args, **kwargs), 5)
+    plain_ms = cuda_ms(lambda: tile_ops.tile_eval_reference(
+        *args, **kwargs, bf16=True), 2)
+    bnd = tile_bound_bf16(args, kwargs)
+    smem = tile_ops._lib().tile_eval_bf16_smem_bytes(d, args[2].shape[-1])
+    tensor, fp32, _ = tile_work_bf16(args, kwargs)
+    nt, mp, t = args[0].shape[0], args[1].shape[1], args[6].shape[-1]
+    n_cols = max(1, int(act.sum()) * (1 + d) * t)
+    print(f"phase 17a: bf16 kernel, {label} (NT={nt}, {int(act.sum())} "
+          f"active, MP={mp}, T={t}): vs the bf16 plain version max abs err "
+          f"vf={err[0]:.3g} vg={err[1]:.3g}, largest share of its "
+          f"limit {over[0]:.3g} {over[1]:.3g} (the f32 kernel's "
+          f"{f32_over[0]:.3g} {f32_over[1]:.3g}); "
+          f"{float(amb.sum()) / n_cols:.4f} of the columns have a K* entry "
+          f"two f32 evaluations may round to other bf16 values (the plain "
+          f"version's f32 K* uses {model:.3g} of the error bound that "
+          f"decides it), on the others max abs err vf={err_clean[0]:.3g}"
+          f" vg={err_clean[1]:.3g}, share of the limit {over_clean[0]:.3g} "
+          f"{over_clean[1]:.3g}; f and g vs the "
+          f"f32 kernel: {'bitwise equal' if same_fg else 'DIFFER'}; vf, vg "
+          f"vs the f32 kernel max abs diff {dv[0]:.3g} {dv[1]:.3g} "
+          f"({'within' if gate_ok else 'outside'} the JAX bf16 gate), the "
+          f"bf16 plain version vs the f32 one {dv_plain[0]:.3g} "
+          f"{dv_plain[1]:.3g} ({'within' if plain_ok else 'outside'}); "
+          f"launches "
+          f"f32/bf16 {counted[0]}/{counted[1]}; deterministic {determ}, "
+          f"tile order free {order_free}; kernel {ms16:.3f} / {ms16b:.3f} "
+          f"ms (f32 kernel {ms32a:.3f} / {ms32b:.3f} in turns; "
+          f"{tensor / ms16 / 1e9:.2f} TFLOP/s bf16 + {fp32 / ms16 / 1e9:.2f}"
+          f" TFLOP/s fp32 on tile_work_bf16's count), plain "
+          f"{plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), {smem} B "
+          f"of dynamic shared memory per block ({card})", flush=True)
+    if max(over) > 1.0:
+        fail(f"bf16 kernel, {label}: off the bf16 plain version beyond "
+             f"its limits (largest share {over})")
+    if model > 1.0:
+        fail(f"bf16 kernel, {label}: the plain version's f32 K* is off its "
+             f"float64 value by {model:.3g} of the error bound that decides "
+             f"which entries may round to other bf16 values")
+    if not same_fg:
+        fail(f"bf16 kernel, {label}: f and g differ from the f32 kernel's")
+    if not moved:
+        fail(f"bf16 kernel, {label}: no variance differs from the f32 "
+             f"kernel's")
+    if counted != (0, 1):
+        fail(f"bf16 kernel, {label}: launches f32/bf16 {counted}, not 0/1")
+    if not determ or not order_free:
+        fail(f"bf16 kernel, {label}: not bitwise deterministic "
+             f"({determ}) or tile order free ({order_free})")
+    return dict(err=max(err), ms=ms16, plain_ms=plain_ms,
+                bound=bnd, gap=dv, plain_gap=dv_plain)
+
+
+def blend_choice(top, pairs, nq, var_thre):
+    """Per query of a map_test call (its _top3 and _eval_pairs returns):
+    (n_cand, use_near, best_lt, the indices of the two smallest
+    variances in map_test's tie order)."""
+    _, top_ok, n_cand = top
+    vf3 = torch.where(top_ok, pairs[2].reshape(-1, 3), torch.inf)[:nq]
+    order = torch.sort(vf3, dim=1, stable=True).indices[:, :2]
+    n_cand = n_cand[:nq]
+    use_near = (n_cand == 1) | (vf3[:, 0] <= var_thre)
+    best_lt = vf3.min(dim=1).values < var_thre
+    return n_cand, use_near, best_lt, order
+
+
+def bf16_test(m, q, tile_ops, cluster, setting, tile_fn=None):
+    """One test() of m at q with GPISMAP_PALLAS_BF16=setting after a warm
+    one, its tile op replaced by tile_fn if given: (its output, the tile
+    kernel's launches f32/bf16, the _top3 and _eval_pairs returns)."""
+    with Env(GPISMAP_PALLAS_BF16=setting):
+        m.test(q)
+        torch.cuda.synchronize()
+        orig = tile_ops.tile_eval
+        tile_ops.launches = tile_ops.launches_bf16 = 0
+        try:
+            if tile_fn is not None:
+                tile_ops.tile_eval = tile_fn
+            with Returns(cluster, "_top3") as top, \
+                    Returns(cluster, "_eval_pairs") as pairs:
+                res = m.test(q)
+                torch.cuda.synchronize()
+        finally:
+            tile_ops.tile_eval = orig
+    return dict(res=res, n=(tile_ops.launches, tile_ops.launches_bf16),
+                top=top.args, pairs=pairs.args)
+
+
+def run_bf16(card, tile_ops, cluster, plans, maps):
+    """Phase 17: the tile kernel's bf16 variant. 17a on the tile plans of
+    phases 4 and 7; 17b test() with GPISMAP_PALLAS_BF16=1 on those maps,
+    against the default test() and against test() with the bf16 plain
+    version in the kernel's place. Returns the kernel-line numbers and the
+    bf16 test() launches."""
+    import torch_bf16_checks as bc
+    t_phase = time.time()
+    kern = {label: check_bf16_kernel(card, tile_ops, label, captured)
+            for label, captured in plans}
+    n_bf16 = {}
+
+    def plain_tile(*args, **kwargs):
+        return tile_ops.tile_eval_reference(*args, **kwargs)
+
+    def limit_tile(*args, **kwargs):
+        """The tile op's outputs with the bf16 variances' limits in place
+        of var_f and var_grad (the same scatter carries them to pairs)."""
+        kwargs = {k: v for k, v in kwargs.items() if k != "bf16"}
+        lf, lg, _ = bc.variance_limits(args, kwargs, KERNEL_TOL)
+        out = tile_ops.tile_eval_reference(*args, **kwargs, bf16=True)
+        return out[0], out[1], lf.float(), lg.float()
+
+    for label, m, q in maps:
+        d = m.dim
+        var_thre = m._test_kwargs()["var_thre"]
+        nq = len(q)
+        runs = {}
+        for setting in (None, "1"):
+            runs[setting] = bf16_test(m, q, tile_ops, cluster, setting)
+            walls, evs = [], []
+            with Env(GPISMAP_PALLAS_BF16=setting):
+                for _ in range(3):
+                    t0 = time.time()
+                    _, ev = event_ms(lambda: m.test(q))
+                    walls.append(time.time() - t0)
+                    evs.append(ev)
+            runs[setting].update(walls=walls, evs=evs)
+        plain = bf16_test(m, q, tile_ops, cluster, "1", plain_tile)
+        lim = bf16_test(m, q, tile_ops, cluster, "1", limit_tile)["pairs"]
+        off, on = runs[None], runs["1"]
+        n_bf16[label] = on["n"][1]
+        if off["n"] != (1, 0) or on["n"][0] != 0 or on["n"][1] < 1:
+            fail(f"phase 17b {label}: tile launches f32/bf16 {off['n']} "
+                 f"with the switch off, {on['n']} on")
+        c_off = blend_choice(off["top"], off["pairs"], nq, var_thre)
+        c_on = blend_choice(on["top"], on["pairs"], nq, var_thre)
+        c_plain = blend_choice(plain["top"], plain["pairs"], nq, var_thre)
+        if not torch.equal(c_off[0], c_on[0]):
+            fail(f"phase 17b {label}: candidate counts differ")
+        has = c_off[0] >= 1
+        near_both = (c_off[1] & c_on[1] & has).cpu().numpy()
+        near_plain = (c_plain[1] & c_on[1] & has).cpu().numpy()
+        blend_both = (~c_off[1] & ~c_on[1] & has)
+        flip = has & ((c_off[1] != c_on[1]) | (blend_both & (
+            (c_off[2] != c_on[2]) | (c_off[3] != c_on[3]).any(1))))
+        flip = flip.cpu().numpy()
+        stay = (blend_both.cpu().numpy() & ~flip)
+        r0, r1, rp = off["res"], on["res"], plain["res"]
+        dcol = np.abs(r1 - r0)
+        vf_col = 1 + d
+        g_cols = slice(1, 1 + d)
+        vg_cols = slice(2 + d, 2 + 2 * d)
+
+        def mx(rows, cols):
+            return float(dcol[rows][:, cols].max()) if rows.any() else 0.0
+        same_near = (np.array_equal(r1[near_both][:, :1 + d],
+                                    r0[near_both][:, :1 + d]))
+        dv_near, ok_near = bf16_gate(
+            (torch.as_tensor(r1[:, vf_col]), torch.as_tensor(r1[:, vg_cols])),
+            (torch.as_tensor(r0[:, vf_col]), torch.as_tensor(r0[:, vg_cols])),
+            torch.as_tensor(near_both))
+        # the nearest candidate's limits (pair 3 q of query q)
+        lim_vf = lim[2].reshape(-1, 3)[:nq, 0].double().cpu().numpy()
+        lim_vg = lim[3].reshape(-1, 3, d)[:nq, 0].double().cpu().numpy()
+        gap_vf = np.abs(r1[:, vf_col].astype(np.float64)
+                        - rp[:, vf_col].astype(np.float64))
+        gap_vg = np.abs(r1[:, vg_cols].astype(np.float64)
+                        - rp[:, vg_cols].astype(np.float64))
+        share = [float((gap / np.maximum(lm, 1e-300))[near_plain].max())
+                 if near_plain.any() else 0.0
+                 for gap, lm in ((gap_vf, lim_vf), (gap_vg, lim_vg))]
+        print(f"phase 17b: {label} test() of {nq} queries with "
+              f"GPISMAP_PALLAS_BF16=1: tile launches f32/bf16 "
+              f"{on['n'][0]}/{on['n'][1]} (switch off: {off['n'][0]}/"
+              f"{off['n'][1]}); {int(has.sum().item())} queries with a "
+              f"candidate, {int(near_both.sum())} take the nearest result in "
+              f"both runs: f, g {'bitwise equal' if same_near else 'DIFFER'}"
+              f", vf / vg max abs diff {dv_near[0]:.3g} / {dv_near[1]:.3g} "
+              f"({'within' if ok_near else 'outside'} the JAX bf16 gate); "
+              f"against test() with the bf16 plain version as its tile op, "
+              f"at the {int(near_plain.sum())} queries that take the nearest "
+              f"result in both: vf / vg max abs diff "
+              f"{float(gap_vf[near_plain].max()) if near_plain.any() else 0:.3g}"
+              f" / {float(gap_vg[near_plain].max()) if near_plain.any() else 0:.3g}"
+              f", largest share of its limit {share[0]:.3g} / {share[1]:.3g}; "
+              f"var_thre blend choice flipped at {int(flip.sum())} queries "
+              f"(share {flip.sum() / nq:.3g} of all, "
+              f"{flip.sum() / max(1, int(has.sum().item())):.3g} of those "
+              f"with a candidate), max |df| {mx(flip, slice(0, 1)):.3g} "
+              f"|dg| {mx(flip, g_cols):.3g} there; blended in both without "
+              f"a flip ({int(stay.sum())}): max |df| "
+              f"{mx(stay, slice(0, 1)):.3g} |dg| {mx(stay, g_cols):.3g} "
+              f"|dvf| {mx(stay, slice(vf_col, vf_col + 1)):.3g} |dvg| "
+              f"{mx(stay, vg_cols):.3g} ({card})", flush=True)
+        for key, name in ((None, "off"), ("1", "on")):
+            r = runs[key]
+            print(f"  warm test() with the switch {name}: "
+                  + ", ".join(f"{nq / w:.0f}" for w in r["walls"])
+                  + " queries/s (host wall); "
+                  + ", ".join(f"{e:.3f}" for e in r["evs"])
+                  + " ms (CUDA events)", flush=True)
+        if not same_near:
+            fail(f"phase 17b {label}: f and g of the nearest-cell results "
+                 f"differ from the f32 run's")
+        if plain["n"] != (0, 0) or not near_plain.any():
+            fail(f"phase 17b {label}: the plain version's test() launched "
+                 f"a tile kernel ({plain['n']}) or has no nearest-cell "
+                 f"query in common with the kernel's")
+        if max(share) > 1.0:
+            fail(f"phase 17b {label}: nearest-cell variances off the bf16 "
+                 f"plain version's test() beyond their limits ({share})")
+        if not np.isfinite(r1).all() or r1.shape != r0.shape:
+            fail(f"phase 17b {label}: bf16 test() output not finite")
+    print(f"  phase 17 wall {time.time() - t_phase:.1f} s", flush=True)
+    return dict(kernel=kern, launches=n_bf16)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1953,7 +2314,7 @@ def main() -> int:
     # ---- phase 4: the main path at full size ----
     m = GPisMap2D(device=dev)
     with Capture(tile_ops, "tile_eval") as cap:
-        tile_ops.launches = 0
+        tile_ops.launches = tile_ops.launches_bf16 = 0
         chol_ops.chol_launches = chol_ops.linv_launches = 0
         torch.cuda.synchronize()
         t0 = time.time()
@@ -1967,6 +2328,7 @@ def main() -> int:
         torch.cuda.synchronize()
         t_test = time.time() - t0
         launches = tile_ops.launches
+        launches_bf16 = tile_ops.launches_bf16
         first = (chol_ops.chol_launches, chol_ops.linv_launches)
     t0 = time.time()
     m.test(grid)
@@ -1982,6 +2344,8 @@ def main() -> int:
           f"test ({card})", flush=True)
     if launches < 1:
         fail("test() did not launch the tile kernel")
+    if tile_ops.launches_bf16:
+        fail("the default 2D path launched the bf16 tile kernel")
     if upd[0] + first[0] < 1 or upd[1] + first[1] < 1:
         fail("the main path did not launch the chol and linv kernels")
     if m._factors is None:
@@ -2091,7 +2455,7 @@ def main() -> int:
         # ---- phase 10b: the autograd Functions vs their plain versions ----
         for n in (384, 1280):
             check_factor_functions(card, chol_ops, n)
-        check_tile_function(card, tile_ops, r3.pop("tile_args"),
+        check_tile_function(card, tile_ops, r3["tile_args"],
                             "d=3, phase 7's tile plan")
         check_tile_function(card, tile_ops, cap.args,
                             "d=2, phase 4's tile plan")
@@ -2119,6 +2483,11 @@ def main() -> int:
     # ---- phase 16: the mesh ----
     n16 = run_mesh(card, m, res, qr, grid, m3, r3, volume, cluster,
                    checkpoint, tile_ops, chol_ops)
+
+    # ---- phase 17: the bf16 variant ----
+    b17 = run_bf16(card, tile_ops, cluster,
+                   (("d=2", cap.args), ("d=3", r3.pop("tile_args"))),
+                   (("2D", m, grid), ("3D", m3, volume)))
 
     t2 = "gpismap_tpu/ops/pallas_tile.py:118"
     pc = "gpismap_tpu/ops/pallas_chol.py"
@@ -2183,6 +2552,16 @@ def main() -> int:
                      h640["linv_err"],
                      h640["linv_ms"], h640["linv_plain_ms"], h640["bound"],
                      h640["linv_library_ms"])]
+    tb = ("gpismap_tpu/ops/pallas_tile.py:118 (bf16=True; _make_kernel :36, "
+          "branch :95-104)")
+    for dd, path, key in ((2, "2D", "d=2"), (3, "3D", "d=3")):
+        k = b17["kernel"][key]
+        kernels.append(kernel_entry(
+            f"tile_eval_bf16 (d={dd})", tb,
+            {"update_test": r3["tile_bf16_launches"] if dd == 3
+             else launches_bf16, f"bf16_test_{dd}d": b17["launches"][path]},
+            k["err"], k["ms"], k["plain_ms"], k["bound"], None,
+            main=f"bf16_test_{dd}d"))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,12 @@ JAX package does by default on its accelerator; the results are the
 window path's. Unset, the table is off on every device: on the H100 it
 saves no query time and costs its build at the first test() after each
 retrain (PERF.md).
+
+With GPISMAP_PALLAS_BF16=1 (or on), read at each test(), a mapper on a
+CUDA device runs the tile kernel's bf16 variant: the variance product
+with bfloat16 multiplicands and f32 accumulation, f and grad unchanged
+(ops/tile_eval.py). It is off by default, forward-only, and a mapper on
+the CPU ignores it, as the JAX package does off its accelerator.
 """
 from __future__ import annotations
 
@@ -429,6 +435,15 @@ class _MapperBase:
         on every device."""
         return os.environ.get("GPISMAP_NBR_TABLE", "auto") in ("1", "on")
 
+    def _pallas_bf16(self) -> bool:
+        """Whether test() runs the tile kernel's bf16 variance variant:
+        GPISMAP_PALLAS_BF16, read at each test(), 1/on, and a mapper on a
+        CUDA device (the JAX package passes `up and _pallas_bf16()`,
+        where up is false off its accelerator). Off by default: the
+        variance error can flip the var_thre blend (PERF.md)."""
+        return (self.device.type == "cuda" and os.environ.get(
+            "GPISMAP_PALLAS_BF16") in ("1", "on"))
+
     def _build_nbrs(self) -> None:
         """Build the candidate table from the live cells (None when no
         cell is live). The dense variant, one row per grid cell, is taken
@@ -475,7 +490,7 @@ class _MapperBase:
         f, g, vf, vg, info = run(
             self.store, self.grid, self._t(xq), factors=self._get_factors(),
             nbrs=self._nbrs, nbr_dense=self._nbr_dense,
-            **self._test_kwargs())
+            bf16=self._pallas_bf16(), **self._test_kwargs())
         out = torch.cat([f[:, None], g, vf[:, None], vg], dim=-1)[:nq].cpu()
         info = _to_numpy(info)
         # candidates beyond cap.nbr_k a table row could not hold

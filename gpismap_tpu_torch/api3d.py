@@ -13,7 +13,9 @@ compaction off, GPISMAP_OBS_BLOCKED=1 selects the cell-blocked sweep,
 which the JAX package takes by default on its accelerator; unset, the
 dense gather runs, 2.3x faster on the H100 (PERF.md). Each gives the
 results of the dense CPU path. Both settings are read here, at each
-update, and passed down to mapper3d.frame_compute_3d.
+update, and passed down to mapper3d.frame_compute_3d. test() is
+api._MapperBase's: GPISMAP_NBR_TABLE and GPISMAP_PALLAS_BF16 (the tile
+kernel's bf16 variance variant, on a CUDA mapper only) are read there.
 """
 from __future__ import annotations
 

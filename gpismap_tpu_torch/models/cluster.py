@@ -610,9 +610,11 @@ class TestInfo(NamedTuple):
 
 def _eval_pairs(store: ClusterStore, linv_buf: torch.Tensor,
                 slot_of: torch.Tensor, plan: segmented.TilePlan, npair: int,
-                q: torch.Tensor, div: int, scale, val_const, grad_const):
-    """Evaluate one planned pair set through the tile op, then ONE packed
-    scatter back to pair order (pair p belongs to query p // div).
+                q: torch.Tensor, div: int, scale, val_const, grad_const,
+                bf16: bool = False):
+    """Evaluate one planned pair set through the tile op (its bf16
+    variance variant with bf16), then ONE packed scatter back to pair
+    order (pair p belongs to query p // div).
     Returns (f [P], g [P, D], vf [P] (inf where not evaluated),
     vg [P, D])."""
     d = q.shape[-1]
@@ -621,7 +623,7 @@ def _eval_pairs(store: ClusterStore, linv_buf: torch.Tensor,
     f_t, g_t, vf_t, vg_t = tile_ops.tile_eval(
         plan.tile_seg, linv_buf, xt, alpha, gf, vl,
         qt.transpose(-1, -2).contiguous(), d=d, scale=scale,
-        val_const=val_const, grad_const=grad_const)
+        val_const=val_const, grad_const=grad_const, bf16=bf16)
     # inactive tiles and padding slots drop onto a dummy trailing row
     mask = (plan.pair_ids >= 0) & (plan.tile_seg[:, None] >= 0)
     tgt = torch.where(mask, plan.pair_ids, npair).reshape(-1).long()
@@ -638,7 +640,7 @@ def map_test(store: ClusterStore, grid: torch.Tensor, q: torch.Tensor,
              val_const, grad_const, var_thre, default_var, tile: int,
              max_cells: int, max_active: int = 512, factors=None,
              nbrs: NeighborTable = None, nbr_dense: bool = False,
-             two_phase: bool = False):
+             two_phase: bool = False, bf16: bool = False):
     """Batched SDF+gradient+variance query (GPisMap.cpp:665-763).
 
     Per query: collect the trained cluster cells intersecting the search
@@ -654,6 +656,9 @@ def map_test(store: ClusterStore, grid: torch.Tensor, q: torch.Tensor,
     reads the rank-1/2 results of a confident query, so the outputs are
     the single phase's; the skipped pairs are not counted as dropped.
     Otherwise all 3Q (query, rank) pairs go through one tile plan.
+    bf16: the tile evaluation's bf16 variance variant (tile_eval(bf16=),
+    the JAX package's pallas_bf16; forward-only); candidates, plan and
+    blend are unchanged.
 
     factors: optional (linv_buf, uniq) cache from factorize_slots;
     without it, each distinct touched cell (at most max_active; overflow
@@ -687,7 +692,7 @@ def map_test(store: ClusterStore, grid: torch.Tensor, q: torch.Tensor,
         plan, n_in = segmented.plan_tiles_for_slots(seg, uniq, max_cells,
                                                     max_active, tile)
         out = _eval_pairs(store, linv_buf, slot_of, plan, seg.shape[0], q,
-                          div, scale, val_const, grad_const)
+                          div, scale, val_const, grad_const, bf16)
         return out + ((torch.sum(seg >= 0) - n_in).to(torch.int32), n_in)
 
     if two_phase:
@@ -795,7 +800,8 @@ def map_test_sharded(store: ClusterStore, grid: torch.Tensor,
     reference's test(), GPisMap.cpp:765-810), then the shards are
     all-gathered in one collective and the three TestInfo counters
     summed in one more. Every rank returns the whole batch's results.
-    Q must divide by the mesh size."""
+    Q must divide by the mesh size. kw goes to map_test as it is, its
+    bf16= (the bf16 variance variant) included."""
     nq, d = q.shape
     if nq % mesh.size:
         raise ValueError(f"{nq} queries do not split over {mesh.size} ranks")

@@ -73,6 +73,19 @@ def linv_from_chol(l: torch.Tensor) -> torch.Tensor:
     return chol_ops.linv(l)
 
 
+def gpou_test(state: GPouState, xt: torch.Tensor, scale: float,
+              noise: float):
+    """Posterior mean/variance at xt [B, Q, D] (ObsGP.cpp:50-62).
+
+    Returns (mean [B, Q], var [B, Q]); var = 1 + noise - sum((L^-1 k*)^2).
+    """
+    ks = kernels.ou_cross_cov(state.x, state.valid, xt, scale)  # [B, M, Q]
+    mean = torch.einsum('...mq,...m->...q', ks, state.alpha)
+    v = _solve_lower(state.l, ks)
+    var = 1.0 + noise - torch.sum(v * v, dim=-2)
+    return mean, var
+
+
 def gpou_linv(l: torch.Tensor) -> torch.Tensor:
     """linv_from_chol for the observation GPs' small factors (n = 26 in
     2D): torch.linalg on every device."""
@@ -153,3 +166,30 @@ def fit_ongpis(x: torch.Tensor, grad: torch.Tensor, val: torch.Tensor,
     alpha = _solve_chol(l, y[..., None])[..., 0]
     return OnGPISState(x=x, valid=valid, gradflag=gradflag, l=l,
                        alpha=alpha, trained=torch.any(valid, dim=-1))
+
+
+def ongpis_test(state: OnGPISState, xt: torch.Tensor, scale: float,
+                val_const: float, grad_const: float):
+    """Posterior SDF value/gradient + variances at xt [B, Q, D].
+
+    Parity: OnGPIS.cpp:218-263 (test2Dpoint: val_const=1.01,
+    grad_const=3/l^2+0.1) and :177-216 (testSinglePoint 3D branch:
+    val_const=1.001, grad_const=3/l^2+0.001).
+
+    Returns (f [B, Q], grad [B, Q, D], varf [B, Q], vargrad [B, Q, D]).
+    """
+    d = xt.shape[-1]
+    q = xt.shape[-2]
+    ks = kernels.matern32_deriv_cross_cov(state.x, state.gradflag,
+                                          state.valid, xt, scale)
+    res = torch.einsum('...mq,...m->...q', ks, state.alpha)  # [B, (1+D)Q]
+    f = res[..., :q]
+    grad = torch.stack([res[..., (1 + i) * q:(2 + i) * q] for i in range(d)],
+                       dim=-1)
+    v = _solve_lower(state.l, ks)
+    vsum = torch.sum(v * v, dim=-2)
+    varf = val_const - vsum[..., :q]
+    vargrad = torch.stack(
+        [grad_const - vsum[..., (1 + i) * q:(2 + i) * q] for i in range(d)],
+        dim=-1)
+    return f, grad, varf, vargrad

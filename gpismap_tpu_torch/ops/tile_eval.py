@@ -25,6 +25,15 @@ copies of L^-1 and K* it holds stay bounded. The JAX package has no VJP
 for the Pallas kernel either: its differentiable evaluation runs the
 XLA path, which is what the plain version is. scale, val_const and
 grad_const may be floats or 0-d tensors; a tensor gets its gradient.
+
+bf16=True is the Pallas kernel's bf16 variant (tile_eval_pallas(bf16=),
+the JAX package's GPISMAP_PALLAS_BF16 query path): the variance product
+V = L^-1 K* takes bfloat16 multiplicands, rounded to nearest even, with
+f32 accumulation; K*, the mean (f, g) and colsum(V^2) stay f32, so f and
+g are bitwise those of bf16=False. On CUDA tensors it launches the
+kernel's bf16 instance (csrc/tile_eval.cu, counted in `launches_bf16`,
+not in `launches`). It is forward-only, as the Pallas kernel is (no
+VJP): a call that would record a gradient raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -42,8 +51,10 @@ from . import kernels
 _SRC = os.path.join(_native.PKG_DIR, "csrc", "tile_eval.cu")
 _LOCK = threading.Lock()
 _LIB: Optional[ct.CDLL] = None
-# launches of the CUDA kernel by tile_eval (not of the plain version)
+# launches of the CUDA kernel by tile_eval (not of the plain version):
+# the f32 instance, and the bf16 variant's apart
 launches = 0
+launches_bf16 = 0
 
 
 def build_library() -> str:
@@ -59,12 +70,14 @@ def _lib() -> ct.CDLL:
         if _LIB is None:
             path, _ = _native.build(_SRC, "libtile_eval.so", _native.NVCC)
             lib = ct.CDLL(path)
-            lib.tile_eval_launch.restype = ct.c_int
-            lib.tile_eval_launch.argtypes = (
-                [ct.c_void_p] * 11 + [ct.c_int] * 5 + [ct.c_float] * 3
-                + [ct.c_void_p])
-            lib.tile_eval_smem_bytes.restype = ct.c_longlong
-            lib.tile_eval_smem_bytes.argtypes = [ct.c_int, ct.c_int]
+            for fn in (lib.tile_eval_launch, lib.tile_eval_bf16_launch):
+                fn.restype = ct.c_int
+                fn.argtypes = ([ct.c_void_p] * 11 + [ct.c_int] * 5
+                               + [ct.c_float] * 3 + [ct.c_void_p])
+            for fn in (lib.tile_eval_smem_bytes,
+                       lib.tile_eval_bf16_smem_bytes):
+                fn.restype = ct.c_longlong
+                fn.argtypes = [ct.c_int, ct.c_int]
             lib.tile_eval_error_string.restype = ct.c_char_p
             lib.tile_eval_error_string.argtypes = [ct.c_int]
             _LIB = lib
@@ -75,9 +88,12 @@ def tile_eval_reference(tile_seg: torch.Tensor, linv: torch.Tensor,
                         xt: torch.Tensor, alpha: torch.Tensor,
                         gradflag: torch.Tensor, valid: torch.Tensor,
                         qt: torch.Tensor, d: int, scale, val_const,
-                        grad_const):
+                        grad_const, bf16: bool = False):
     """Plain PyTorch version of the tile kernel (any d): the same math
-    through ops/kernels.py on the active tiles; inactive tiles give 0."""
+    through ops/kernels.py on the active tiles; inactive tiles give 0.
+    bf16: both multiplicands of the variance product rounded to bfloat16
+    (nearest even), then multiplied in f32, as the Pallas kernel's bf16
+    branch does (a product of two bf16 values is exact in f32)."""
     nt, _, t = qt.shape
     act = torch.nonzero(tile_seg >= 0).reshape(-1)
     seg = tile_seg[act].long()
@@ -85,7 +101,11 @@ def tile_eval_reference(tile_seg: torch.Tensor, linv: torch.Tensor,
         xt[seg].transpose(-1, -2), gradflag[seg] > 0.5, valid[seg] > 0.5,
         qt[act].transpose(-1, -2), scale)            # [A, MP, T(1+d)]
     res = torch.einsum('amc,am->ac', ks, alpha[seg])
-    v = torch.matmul(linv[seg], ks)
+    if bf16:
+        v = torch.matmul(linv[seg].to(torch.bfloat16).float(),
+                         ks.to(torch.bfloat16).float())
+    else:
+        v = torch.matmul(linv[seg], ks)
     vs = torch.sum(v * v, dim=-2)
     f = qt.new_zeros((nt, t))
     g = qt.new_zeros((nt, d, t))
@@ -161,7 +181,8 @@ class _TileEval(torch.autograd.Function):
     def forward(ctx, tile_seg, linv, xt, alpha, gradflag, valid, qt, d,
                 scale, val_const, grad_const):
         out = _launch(tile_seg, linv, xt, alpha, gradflag, valid, qt, d,
-                      float(scale), float(val_const), float(grad_const))
+                      float(scale), float(val_const), float(grad_const),
+                      False)
         hyper = (scale, val_const, grad_const)
         ctx.d = d
         # the floats; a tensor is saved and stands as None here
@@ -188,28 +209,44 @@ class _TileEval(torch.autograd.Function):
 def tile_eval(tile_seg: torch.Tensor, linv: torch.Tensor, xt: torch.Tensor,
               alpha: torch.Tensor, gradflag: torch.Tensor,
               valid: torch.Tensor, qt: torch.Tensor, d: int, scale,
-              val_const, grad_const):
+              val_const, grad_const, bf16: bool = False):
     """Evaluate all tiles: the CUDA kernel through _TileEval for CUDA
     tensors, the plain version for CPU tensors. The module's `launches`
-    counts kernel launches."""
+    counts kernel launches. bf16=True: the bf16 variance variant (the
+    plain version's bf16 branch on the CPU, the kernel's bf16 instance on
+    CUDA, counted in `launches_bf16`); forward-only, so it raises
+    NotImplementedError when grad mode is on and an input requires
+    grad."""
     args = (tile_seg, linv, xt, alpha, gradflag, valid, qt)
     devices = {a.device for a in args}
     if len(devices) != 1:
         raise ValueError(f"tile_eval: tensors on several devices {devices}")
     dev = devices.pop()
+    if bf16 and torch.is_grad_enabled() and any(
+            isinstance(x, torch.Tensor) and x.requires_grad
+            for x in args + (scale, val_const, grad_const)):
+        raise NotImplementedError(
+            "tile_eval(bf16=True) is forward-only, as the Pallas kernel's "
+            "bf16 variant is (no VJP); differentiate the f32 evaluation "
+            "(bf16=False)")
     if dev.type == "cpu":
         return tile_eval_reference(*args, d=d, scale=scale,
-                                   val_const=val_const, grad_const=grad_const)
+                                   val_const=val_const, grad_const=grad_const,
+                                   bf16=bf16)
     if dev.type != "cuda":
         raise ValueError(f"tile_eval: unsupported device {dev}")
+    if bf16:
+        return _launch(*args, d, float(scale), float(val_const),
+                       float(grad_const), True)
     return _TileEval.apply(*args, d, scale, val_const, grad_const)
 
 
 def _launch(tile_seg, linv, xt, alpha, gradflag, valid, qt, d: int,
-            scale: float, val_const: float, grad_const: float):
-    """Checks the CUDA tensors and runs the kernel into new outputs
-    (f, g, vf, vg); counts the launch in `launches`."""
-    global launches
+            scale: float, val_const: float, grad_const: float, bf16: bool):
+    """Checks the CUDA tensors and runs the kernel (its bf16 instance with
+    bf16) into new outputs (f, g, vf, vg); counts the launch in
+    `launches` (`launches_bf16`)."""
+    global launches, launches_bf16
     args = (tile_seg, linv, xt, alpha, gradflag, valid, qt)
     dev = qt.device
     if d not in (2, 3):
@@ -234,6 +271,8 @@ def _launch(tile_seg, linv, xt, alpha, gradflag, valid, qt, d: int,
     if mp != m * (1 + d):
         raise ValueError(f"tile_eval: MP={mp} != M(1+d)={m * (1 + d)}")
     lib = _lib()
+    run, smem = ((lib.tile_eval_bf16_launch, lib.tile_eval_bf16_smem_bytes)
+                 if bf16 else (lib.tile_eval_launch, lib.tile_eval_smem_bytes))
     f = torch.empty((nt, t), dtype=torch.float32, device=dev)
     g = torch.empty((nt, d, t), dtype=torch.float32, device=dev)
     vf = torch.empty((nt, t), dtype=torch.float32, device=dev)
@@ -242,15 +281,17 @@ def _launch(tile_seg, linv, xt, alpha, gradflag, valid, qt, d: int,
         return f, g, vf, vg
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.tile_eval_launch(
+        rc = run(
             *(x.data_ptr() for x in args),
             f.data_ptr(), g.data_ptr(), vf.data_ptr(), vg.data_ptr(),
             nt, s, d, m, t, scale, val_const, grad_const, stream)
     if rc != 0:
         raise RuntimeError(
-            f"tile_eval kernel launch failed: CUDA error {rc} "
-            f"({lib.tile_eval_error_string(rc).decode()}); a block needs "
-            f"{lib.tile_eval_smem_bytes(d, m)} B of shared memory at d={d}, "
-            f"M={m}")
-    launches += 1
+            f"tile_eval{' bf16' if bf16 else ''} kernel launch failed: CUDA "
+            f"error {rc} ({lib.tile_eval_error_string(rc).decode()}); a block "
+            f"needs {smem(d, m)} B of shared memory at d={d}, M={m}")
+    if bf16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return f, g, vf, vg

@@ -6,7 +6,7 @@ the index owns the authoritative node store and the adaptive quadtree
 arrays that feed the GPU compute. The port builds its own copy of the
 library with g++ (into gpismap_tpu_torch/build/) because importing the
 JAX package's binding would import jax, which the GPU host does not have.
-Only the methods the 2D path uses are bound.
+Every method of the JAX binding is bound, with its behaviour.
 """
 from __future__ import annotations
 
@@ -54,6 +54,12 @@ def _load() -> ct.CDLL:
             "try_insert": (None, [ct.c_void_p, _F32P, ct.c_int, _I32P]),
             "set_node_data": (None, [ct.c_void_p, _I32P, ct.c_int, _F32P,
                                      _F32P, _F32P, _F32P]),
+            "update_noise": (None, [ct.c_void_p, _I32P, ct.c_int, _F32P,
+                                    _F32P]),
+            "remove": (None, [ct.c_void_p, _I32P, ct.c_int]),
+            "query_range": (ct.c_int, [ct.c_void_p, _F32P, ct.c_float,
+                                       _I32P, ct.c_int]),
+            "get_active": (ct.c_int, [ct.c_void_p, _I32P, ct.c_int]),
             "num_nodes": (ct.c_int, [ct.c_void_p]),
             "node_capacity": (ct.c_int, [ct.c_void_p]),
             "dump_nodes": (None, [ct.c_void_p, _F32P, _F32P, _F32P, _F32P,
@@ -134,6 +140,19 @@ class SpatialIndex:
             np.ascontiguousarray(pos_sig, np.float32),
             np.ascontiguousarray(grad, np.float32),
             np.ascontiguousarray(grad_sig, np.float32))
+
+    def update_noise(self, ids, pos_sig, grad_sig):
+        ids = np.ascontiguousarray(ids, np.int32)
+        self._dirty.append(ids.copy())
+        self._lib.gpis_index_update_noise(
+            self._h, ids, ids.shape[0],
+            np.ascontiguousarray(pos_sig, np.float32),
+            np.ascontiguousarray(grad_sig, np.float32))
+
+    def remove(self, ids):
+        """Remove nodes (the JAX binding records no dirty ids here)."""
+        ids = np.ascontiguousarray(ids, np.int32)
+        self._lib.gpis_index_remove(self._h, ids, ids.shape[0])
 
     def apply_reeval(self, ids, actions, pos, grad, noise, grad_noise,
                      dbl_ps, dbl_gs, fused_val: float) -> np.ndarray:
@@ -219,6 +238,17 @@ class SpatialIndex:
     # match count, so a result larger than the buffer re-issues the call
     # at the exact size (counted in regrow_count) — a truncated result
     # never passes silently (gpismap_tpu/runtime/index.py:217-251).
+    def query_range(self, center, half: float, cap: int = 4096):
+        center = np.ascontiguousarray(center, np.float32)
+        out = np.empty(cap, np.int32)
+        n = self._lib.gpis_index_query_range(self._h, center, half, out, cap)
+        if n > cap:
+            self.regrow_count += 1
+            out = np.empty(n, np.int32)
+            n = self._lib.gpis_index_query_range(self._h, center, half, out,
+                                                 n)
+        return out[:n].copy()
+
     def query_cluster_cells(self, center, half: float, cap: int = 4096):
         center = np.ascontiguousarray(center, np.float32)
         out = np.empty(cap, np.int32)
@@ -232,6 +262,15 @@ class SpatialIndex:
             n = self._lib.gpis_index_query_cluster_cells(
                 self._h, center, half, out, dst, n)
         return out[:n].copy(), dst[:n].copy()
+
+    def active_cells(self, cap: int = 65536) -> np.ndarray:
+        out = np.empty(cap, np.int32)
+        n = self._lib.gpis_index_get_active(self._h, out, cap)
+        if n > cap:
+            self.regrow_count += 1
+            out = np.empty(n, np.int32)
+            n = self._lib.gpis_index_get_active(self._h, out, n)
+        return out[:n].copy()
 
     def cell_info(self, cells) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         cells = np.ascontiguousarray(cells, np.int32)

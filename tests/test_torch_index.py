@@ -107,3 +107,98 @@ def test_apply_reeval_matches_jax(indexes):
     np.testing.assert_array_equal(it.all_cluster_cells(),
                                   ij.all_cluster_cells())
     np.testing.assert_array_equal(it.serialize(), ij.serialize())
+
+
+def _copies(indexes):
+    """Fresh copies of both fixture indexes (deserialized from the port's
+    blob, which the JAX binding writes byte for byte the same), with their
+    dirty sets emptied."""
+    (ij0, ids), (it0, _) = indexes
+    blob = it0.serialize()
+    ij = JaxIndex(3, JAX_TREE_3D, max_slots=4096)
+    it = SpatialIndex(3, TREE_3D, max_slots=4096)
+    ij.deserialize(blob)
+    it.deserialize(blob)
+    ij.pop_dirty()
+    it.pop_dirty()
+    return ij, it, ids
+
+
+def test_update_noise_matches_jax(indexes):
+    """update_noise sets the same noises in both bindings and, as in the
+    JAX binding, marks its ids dirty for the node mirror."""
+    ij, it, ids = _copies(indexes)
+    rng = np.random.default_rng(2)
+    live = ids[ids >= 0][5:90:2]
+    ps = rng.uniform(0.001, 0.1, len(live)).astype(np.float32)
+    gs = rng.uniform(0.01, 0.3, len(live)).astype(np.float32)
+    ij.update_noise(live, ps, gs)
+    it.update_noise(live, ps, gs)
+    dirty = it.pop_dirty()
+    np.testing.assert_array_equal(dirty, ij.pop_dirty())
+    np.testing.assert_array_equal(dirty, np.unique(live))
+    nodes = it.get_nodes(live)
+    np.testing.assert_array_equal(nodes["pos_sig"], ps)
+    np.testing.assert_array_equal(nodes["grad_sig"], gs)
+    _assert_nodes_equal(it.dump_nodes(), ij.dump_nodes())
+    np.testing.assert_array_equal(it.serialize(), ij.serialize())
+
+
+def test_remove_matches_jax(indexes):
+    """remove takes the same nodes out of both trees (node table, cells,
+    blob) and, as in the JAX binding, leaves the dirty set alone."""
+    ij, it, ids = _copies(indexes)
+    gone = ids[ids >= 0][::4]
+    n0 = it.num_nodes
+    ij.remove(gone)
+    it.remove(gone)
+    assert it.num_nodes == ij.num_nodes == n0 - len(gone)
+    assert len(it.pop_dirty()) == len(ij.pop_dirty()) == 0
+    d = it.dump_nodes()
+    assert not d["alive"][gone].any()
+    _assert_nodes_equal(d, ij.dump_nodes())
+    np.testing.assert_array_equal(it.all_cluster_cells(),
+                                  ij.all_cluster_cells())
+    np.testing.assert_array_equal(it.serialize(), ij.serialize())
+
+
+def test_query_range_matches_jax(indexes):
+    """query_range returns the same node ids in the same order; a result
+    larger than cap re-issues the call at the exact size and counts it in
+    regrow_count in both bindings."""
+    (ij, _), (it, _) = indexes
+    for center, half in (((0.0, 0.0, 0.0), 0.5), ((0.1, -0.05, 0.04), 0.08),
+                         ((2.0, 2.0, 2.0), 0.1)):
+        c = np.asarray(center, np.float32)
+        np.testing.assert_array_equal(it.query_range(c, half),
+                                      ij.query_range(c, half))
+    c = np.zeros(3, np.float32)
+    full = it.query_range(c, 0.5)
+    assert len(full) == it.num_nodes > 16
+    rj, rt = ij.regrow_count, it.regrow_count
+    small_t = it.query_range(c, 0.5, cap=16)
+    small_j = ij.query_range(c, 0.5, cap=16)
+    np.testing.assert_array_equal(small_t, full)
+    np.testing.assert_array_equal(small_t, small_j)
+    assert it.regrow_count == rt + 1 and ij.regrow_count == rj + 1
+
+
+def test_active_cells_matches_jax():
+    """active_cells after the same inserts: the same cells in both
+    bindings, also through a cap below the count (one regrow each);
+    clear_active empties both."""
+    rng = np.random.default_rng(3)
+    pts = rng.uniform(-0.3, 0.3, (300, 3)).astype(np.float32)
+    ij = JaxIndex(3, JAX_TREE_3D, max_slots=4096)
+    it = SpatialIndex(3, TREE_3D, max_slots=4096)
+    ij.try_insert(pts)
+    it.try_insert(pts)
+    act = it.active_cells()
+    np.testing.assert_array_equal(act, ij.active_cells())
+    assert len(act) > 4
+    np.testing.assert_array_equal(it.active_cells(cap=2),
+                                  ij.active_cells(cap=2))
+    assert it.regrow_count == ij.regrow_count == 1
+    ij.clear_active()
+    it.clear_active()
+    assert len(it.active_cells()) == len(ij.active_cells()) == 0

@@ -179,3 +179,51 @@ def test_gpou_posterior_gather_matches_jax():
         chunk=16)
     _close(mj, mt, 1e-4, 1e-4)
     _close(vj, vt, 1e-4, 1e-4)
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_gpou_test_matches_jax(d):
+    """gpou_test on one fitted GPou batch (the JAX fit's arrays fed to
+    both), scale 0.5 and noise 0.01 as in tests/test_kernels_gp.py:102:
+    means within 1e-5, variances within 1e-4."""
+    rng = np.random.default_rng(40 + d)
+    b, m, q = 4, 12, 9
+    x = rng.uniform(-0.5, 0.5, (b, m, d)).astype(np.float32)
+    f = rng.uniform(0.3, 2.0, (b, m)).astype(np.float32)
+    valid = rng.uniform(size=(b, m)) > 0.3
+    valid[0] = False                       # an empty group
+    xt = rng.uniform(-0.5, 0.5, (b, q, d)).astype(np.float32)
+    sj = jgp.fit_gpou(jnp.asarray(x), jnp.asarray(f), jnp.asarray(valid),
+                      0.5, 0.01)
+    st = tgp.GPouState(*(torch.as_tensor(np.array(a)) for a in sj))
+    mj, vj = jgp.gpou_test(sj, jnp.asarray(xt), 0.5, 0.01)
+    mt, vt = tgp.gpou_test(st, torch.as_tensor(xt), 0.5, 0.01)
+    _close(mj, mt, 1e-5, 1e-5)
+    _close(vj, vt, 1e-4, 1e-4)
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_ongpis_test_matches_jax(d):
+    """ongpis_test on one fitted cluster-GP batch (the JAX fit's arrays
+    fed to both), with the constants of tests/test_kernels_gp.py:136
+    (2D: scale 1.2, 1.01, 3/l^2 + 0.1; 3D: scale 0.04 on coordinates
+    shrunk by 0.02, 1.001, 3/l^2 + 0.001): f and grad within 1e-5,
+    the variances within 1e-4 (relative to their size: 3D var_grad is
+    near 1875)."""
+    rng = np.random.default_rng(50 + d)
+    x, grad, val, sigx, siggrad, valid = _nodes(rng, 3, 10, d)
+    xt = rng.uniform(-1, 1, (3, 7, d)).astype(np.float32)
+    scale = 1.2 if d == 2 else 0.04
+    if d == 3:
+        x, xt = x * 0.02, xt * 0.02
+    vc, gc = ((1.01, 3.0 / scale ** 2 + 0.1) if d == 2
+              else (1.001, 3.0 / scale ** 2 + 0.001))
+    sj = jgp.fit_ongpis(*(jnp.asarray(a) for a in
+                          (x, grad, val, sigx, siggrad, valid)), scale)
+    st = tgp.OnGPISState(*(torch.as_tensor(np.array(a)) for a in sj))
+    oj = jgp.ongpis_test(sj, jnp.asarray(xt), scale, vc, gc)
+    ot = tgp.ongpis_test(st, torch.as_tensor(xt), scale, vc, gc)
+    for name, a, b, tol in zip(("f", "grad", "varf", "vargrad"), oj, ot,
+                               (1e-5, 1e-5, 1e-4, 1e-4)):
+        assert tuple(b.shape) == a.shape, name
+        _close(a, b, tol, tol)
