@@ -54,8 +54,9 @@ production shapes:
   (GPISMAP_NBR_TABLE=1) vs the window on the maps of phases 4 and 7,
   equal to the last bit, no overflow. Phase 14: map_test(two_phase)
   vs single phase on both maps, equal to the last bit. Phase 15: 2D
-  strict_reeval=True and 3D "strict" and "snapshot" on the same frames,
-  each held to the default mode's mapped-share and SDF-sign floors.
+  strict_reeval=True and 3D "strict", "fused" and "snapshot" on the same
+  frames, each held to the default mode's mapped-share and SDF-sign
+  floors, its agreement with the default map printed.
 
   The mesh (phase 16), each part in child processes of this script
   (`chip_smoke.py --mesh-child ...`; a failed child fails the run):
@@ -75,15 +76,19 @@ production shapes:
   3D update with GPISMAP_NODE_MIRROR=0 against phases 7-8 (the first
   test() bitwise equal, after the refresh MESH_RTOL/MESH_ATOL).
 
-  The bf16 variant (phase 17): 17a, the tile kernel's bf16 instance on
-  the tile plans of phases 4 (d=2) and 7 (d=3) against the bf16 plain
-  version, each variance within its limit
-  (tests/torch_bf16_checks.variance_limits: KERNEL_TOL of its column's
-  f32 summation scale plus a bf16 step of each K* entry that two correct
-  f32 evaluations may round to different bf16 values), f and g bitwise
-  the f32 kernel's, the variances off the f32 kernel's somewhere (their
-  distance printed beside the plain versions'), launches counted apart,
-  bitwise deterministic and independent of the order of the tiles; 17b,
+  The bf16 variant (phase 17): 17a, the bf16 tile kernel
+  (csrc/tile_eval_bf16.cu) on the tile plans of phases 4 (d=2) and 7
+  (d=3) against the bf16 plain version and the packed one
+  (ops/tile_eval.py:tile_eval_packed_reference), each variance within
+  its limit (tests/torch_bf16_checks.variance_limits: KERNEL_TOL of its
+  column's f32 summation scale plus a bf16 step of each K* entry that
+  two correct f32 evaluations may round to different bf16 values), f and
+  g bitwise the f32 kernel's, the variances off the f32 kernel's
+  somewhere (their distance printed beside the plain versions'),
+  launches counted apart, bitwise deterministic and independent of the
+  order of the tiles, the kept-stage share printed; then three synthetic
+  d=3 plans (BF16_PLANS: a full cell, 80 kept stages; empty cells;
+  cells with gradient-free nodes) against both plain versions; 17b,
   test() with GPISMAP_PALLAS_BF16=1 on the maps of phases 4 and 7: only
   the bf16 kernel launched, the queries whose var_thre blend choice
   flipped counted, the queries that take the nearest cell's result in
@@ -229,6 +234,17 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def nvcc_version() -> str:
+    """The release line of `nvcc --version` of the toolkit the kernels
+    build with: the bf16 kernel's bitwise f and g rest on where it fuses
+    multiply-adds (csrc/tile_eval_bf16.cu, NVCC_READ)."""
+    from gpismap_tpu_torch import _native
+    out = subprocess.run([_native.NVCC[0], "--version"], capture_output=True,
+                         text=True, check=True).stdout
+    lines = [ln.strip() for ln in out.splitlines() if "release" in ln]
+    return lines[0] if lines else out.strip().splitlines()[-1]
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -410,34 +426,37 @@ def factor_bound(x: torch.Tensor):
 
 
 def kernel_entry(name, replaces, launches_by_path, err, ms, plain_ms, bnd,
-                 library_ms, main="update_test"):
+                 library_ms, main="update_test", **extra):
     """One kernel of the kernels line: `launches` is its count on its main
     path (the update->test path, or the bf16 variant's test() with the
     switch on), `launches_by_path` its count on each path, each counted
-    from 0 just before that path ran."""
-    source = ("gpismap_tpu_torch/csrc/tile_eval.cu"
-              if name.startswith("tile_eval")
-              else "gpismap_tpu_torch/csrc/chol.cu")
+    from 0 just before that path ran; `extra` keys are added as given."""
+    source = next(src for key, src in (
+        ("tile_eval_bf16", "gpismap_tpu_torch/csrc/tile_eval_bf16.cu"),
+        ("tile_eval", "gpismap_tpu_torch/csrc/tile_eval.cu"),
+        ("", "gpismap_tpu_torch/csrc/chol.cu")) if name.startswith(key))
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": launches_by_path[main],
             "launches_by_path": launches_by_path, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
-            "bound_by": bnd[1], "library_ms": library_ms}
+            "bound_by": bnd[1], "library_ms": library_ms, **extra}
 
 
 def ptxas_lines(name: str, log: str):
     """The register / spill / shared-memory lines of nvcc's -Xptxas -v
-    report, each labelled with its kernel (and the tile kernel's
-    dimension). Dynamic shared memory is not in it: phases 3 and 6 print
-    the tile kernel's."""
+    report, each labelled with its kernel (and the tile kernels'
+    dimension), printed and returned. Dynamic shared memory is not in it:
+    phases 3, 6 and 17 print the tile kernels'."""
     fn = name
+    out = []
     for line in log.splitlines():
         if "Compiling entry function" in line:
             fn = next((label for key, label in (
-                ("ILi2ELb1E", "tile_eval_bf16 d=2"),
-                ("ILi3ELb1E", "tile_eval_bf16 d=3"),
-                ("ILi2E", "tile_eval d=2"), ("ILi3E", "tile_eval d=3"),
+                ("tile_eval_bf16_kernelILi2E", "tile_eval_bf16 d=2"),
+                ("tile_eval_bf16_kernelILi3E", "tile_eval_bf16 d=3"),
+                ("tile_eval_kernelILi2E", "tile_eval d=2"),
+                ("tile_eval_kernelILi3E", "tile_eval d=3"),
                 ("chol_init_kernel", "chol_init_kernel"),
                 ("chol_panel_kernel", "chol_panel_kernel"),
                 ("chol_update_kernel", "chol_update_kernel"),
@@ -446,7 +465,9 @@ def ptxas_lines(name: str, log: str):
                 ("linv_merge_x_kernel", "linv_merge_x_kernel"))
                 if key in line), name)
         if "registers" in line or "spill" in line or "smem" in line:
-            print(f"  ptxas ({fn}): {line.strip()}")
+            out.append(f"ptxas ({fn}): {line.strip()}")
+            print(f"  {out[-1]}")
+    return out
 
 
 def compare_kernel(tile_ops, captured):
@@ -1544,10 +1565,10 @@ def run_two_phase(card, maps, cluster, tile_ops, chol_ops):
 
 def run_modes(card, frames2d, grid, gazebo, frames3d, volume, res3d,
               torch_scenes, tile_ops, chol_ops):
-    """Phase 15: 2D strict_reeval=True on the 2D frames, 3D "strict" and
-    "snapshot" on the 40 frames, each against the default mode's map (in
-    3D phase 12b's, whose test() of the volume is res3d). Returns each
-    mode's update->test launches."""
+    """Phase 15: 2D strict_reeval=True on the 2D frames, 3D "strict",
+    "fused" and "snapshot" on the 40 frames, each against the default
+    mode's map (in 3D phase 12b's, whose test() of the volume is res3d).
+    Returns each mode's update->test launches."""
     from gpismap_tpu_torch import GPisMap2D, GPisMap3D
 
     t_phase = time.time()
@@ -1557,6 +1578,8 @@ def run_modes(card, frames2d, grid, gazebo, frames3d, volume, res3d,
              dict(strict_reeval=True), frames2d, grid),
             ("3D reeval_mode='strict'", "strict_3d", GPisMap3D,
              dict(reeval_mode="strict"), frames3d, volume),
+            ("3D reeval_mode='fused'", "fused_3d", GPisMap3D,
+             dict(reeval_mode="fused"), frames3d, volume),
             ("3D reeval_mode='snapshot'", "snapshot_3d", GPisMap3D,
              dict(reeval_mode="snapshot"), frames3d, volume)]
     default2d = None
@@ -1578,9 +1601,12 @@ def run_modes(card, frames2d, grid, gazebo, frames3d, volume, res3d,
         if m.dim == 2 and key is None:
             default2d = res
         ref = default2d if m.dim == 2 else res3d
+        dropped = (f", {m.stats.get('reeval_dropped', 0)} re-evaluations "
+                   f"dropped" if m.dim == 3 else "")
         print(f"phase 15: {label}: {len(frames) / t_upd:.2f} update "
-              f"frames/s over {len(frames)} frames, {m.num_nodes} nodes; "
-              f"mapped share {mapped:.4f}; vs the default mode's map: "
+              f"frames/s over {len(frames)} frames, {m.num_nodes} nodes"
+              f"{dropped}; mapped share {mapped:.4f}; vs the default mode's "
+              f"map: "
               + field_agreement(res, ref, var_col, unmapped)
               + f"; launches tile/chol/linv {n[0]}/{n[1]}/{n[2]} ({card})",
               flush=True)
@@ -1949,10 +1975,51 @@ def bf16_gate(out, ref, act):
     return dv, dv[0] <= BF16_VF_TOL and dv[1] <= BF16_VG_TOL
 
 
+def kept_share(tile_ops, args, d):
+    """(the kept stages' mean share of all ceil(MP / 16) stages over the
+    active tiles and over their cells, the largest count: the bf16
+    kernel's nk_cap) of a tile plan (ops/tile_eval.py:kept_stages)."""
+    _, count = tile_ops.kept_stages(args[5], args[4], d)
+    ns = -(-args[1].shape[-1] // 16)
+    segs = args[0][args[0] >= 0].long()
+    cells = torch.unique(segs)
+    share = count.double() / ns
+    return (float(share[segs].mean()) if segs.numel() else 0.0,
+            float(share[cells].mean()) if cells.numel() else 0.0,
+            int(count.max()) if count.numel() else 0)
+
+
+def kernel_alone_ms(fn, kernel: str, reps: int):
+    """Mean device time per call of fn() of the CUDA kernel whose name
+    holds `kernel`, over reps calls, from a torch.profiler (CUPTI) trace:
+    the kernel without the work around it in fn. None, and the reason
+    printed, when the trace does not show that kernel once a call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if kernel in e.key]
+    except RuntimeError as e:
+        print(f"  the profiler did not trace the card: {e}", flush=True)
+        return None
+    n = sum(e.count for e in rows)
+    us = sum(getattr(e, "device_time_total", 0.0) for e in rows)
+    if n != reps or us <= 0:
+        print(f"  the profiler shows {n} launches of {kernel} over {reps} "
+              f"calls, {us} us of device time: not measured", flush=True)
+        return None
+    return us / 1e3 / reps
+
+
 def check_bf16_kernel(card, tile_ops, label, captured):
     """Phase 17a: the bf16 kernel on a captured tile plan against the bf16
-    plain version (within torch_bf16_checks.variance_limits), the f32
-    kernel and itself. Returns its kernel-line numbers."""
+    plain version and the packed one (within
+    torch_bf16_checks.variance_limits), the f32 kernel and itself. Returns
+    its kernel-line numbers."""
     import torch_bf16_checks as bc
     args, kwargs = captured
     kwargs = {k: v for k, v in kwargs.items() if k != "bf16"}
@@ -1967,6 +2034,10 @@ def check_bf16_kernel(card, tile_ops, label, captured):
     ref = tile_ops.tile_eval_reference(*args, **kwargs, bf16=True)
     ref32 = tile_ops.tile_eval_reference(*args, **kwargs)
     lims = bc.variance_limits(args, kwargs, KERNEL_TOL)
+    packed = tile_ops.tile_eval_packed_reference(*args, **kwargs)
+    over_packed = [float(x[act].max()) if bool(act.any()) else 0.0
+                   for x in bc.shares(out, packed, lims)]
+    del packed
     model = bc.kstar_model_ratio(args, d, kwargs["scale"])
     amb = lims[2] & act[:, None, None]
     clean = (~lims[2]) & act[:, None, None]
@@ -1997,17 +2068,20 @@ def check_bf16_kernel(card, tile_ops, label, captured):
     determ = all(torch.equal(a[act], b[act]) for a, b in zip(out, again))
     order_free = all(torch.equal(a[perm][pa], b[pa])
                      for a, b in zip(out, moved_tiles))
-    # f32 and bf16 in turns: f32, bf16, bf16, f32
+    per_tile, per_cell, nk_cap = kept_share(tile_ops, args, d)
+    # f32 and bf16 in turns through tile_eval (the bf16 call's kept_stages
+    # and its one read back included): f32, bf16, bf16, f32; the bf16
+    # kernel alone is read after 17b (kernel_alone_ms)
     ms32a = cuda_ms(lambda: tile_ops.tile_eval(*args, **kwargs), 5)
-    ms16 = cuda_ms(lambda: tile_ops.tile_eval(*args, **kwargs, bf16=True),
-                   5)
+    ms16 = cuda_ms(lambda: tile_ops.tile_eval(*args, **kwargs, bf16=True), 5)
     ms16b = cuda_ms(lambda: tile_ops.tile_eval(*args, **kwargs, bf16=True),
                     5)
     ms32b = cuda_ms(lambda: tile_ops.tile_eval(*args, **kwargs), 5)
     plain_ms = cuda_ms(lambda: tile_ops.tile_eval_reference(
         *args, **kwargs, bf16=True), 2)
     bnd = tile_bound_bf16(args, kwargs)
-    smem = tile_ops._lib().tile_eval_bf16_smem_bytes(d, args[2].shape[-1])
+    smem = tile_ops._lib_bf16().tile_eval_bf16_smem_bytes(
+        d, args[2].shape[-1], nk_cap)
     tensor, fp32, _ = tile_work_bf16(args, kwargs)
     nt, mp, t = args[0].shape[0], args[1].shape[1], args[6].shape[-1]
     n_cols = max(1, int(act.sum()) * (1 + d) * t)
@@ -2021,23 +2095,28 @@ def check_bf16_kernel(card, tile_ops, label, captured):
           f"version's f32 K* uses {model:.3g} of the error bound that "
           f"decides it), on the others max abs err vf={err_clean[0]:.3g}"
           f" vg={err_clean[1]:.3g}, share of the limit {over_clean[0]:.3g} "
-          f"{over_clean[1]:.3g}; f and g vs the "
-          f"f32 kernel: {'bitwise equal' if same_fg else 'DIFFER'}; vf, vg "
+          f"{over_clean[1]:.3g}; vs the packed plain version largest "
+          f"share {over_packed[0]:.3g} {over_packed[1]:.3g}; kept stages "
+          f"{per_tile:.4f} of all per active tile, {per_cell:.4f} per cell, "
+          f"at most {nk_cap}; f and g vs the "
+          f"f32 kernel: {'bitwise equal' if same_fg else 'DIFFER'} (nvcc "
+          f"{nvcc_version()}); vf, vg "
           f"vs the f32 kernel max abs diff {dv[0]:.3g} {dv[1]:.3g} "
           f"({'within' if gate_ok else 'outside'} the JAX bf16 gate), the "
           f"bf16 plain version vs the f32 one {dv_plain[0]:.3g} "
           f"{dv_plain[1]:.3g} ({'within' if plain_ok else 'outside'}); "
           f"launches "
           f"f32/bf16 {counted[0]}/{counted[1]}; deterministic {determ}, "
-          f"tile order free {order_free}; kernel {ms16:.3f} / {ms16b:.3f} "
-          f"ms (f32 kernel {ms32a:.3f} / {ms32b:.3f} in turns; "
+          f"tile order free {order_free}; through tile_eval {ms16:.3f} / "
+          f"{ms16b:.3f} ms (f32 kernel {ms32a:.3f} / {ms32b:.3f} in turns; "
           f"{tensor / ms16 / 1e9:.2f} TFLOP/s bf16 + {fp32 / ms16 / 1e9:.2f}"
           f" TFLOP/s fp32 on tile_work_bf16's count), plain "
           f"{plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), {smem} B "
           f"of dynamic shared memory per block ({card})", flush=True)
-    if max(over) > 1.0:
+    if max(over) > 1.0 or max(over_packed) > 1.0:
         fail(f"bf16 kernel, {label}: off the bf16 plain version beyond "
-             f"its limits (largest share {over})")
+             f"its limits (largest share {over}; vs the packed one "
+             f"{over_packed})")
     if model > 1.0:
         fail(f"bf16 kernel, {label}: the plain version's f32 K* is off its "
              f"float64 value by {model:.3g} of the error bound that decides "
@@ -2054,6 +2133,77 @@ def check_bf16_kernel(card, tile_ops, label, captured):
              f"({determ}) or tile order free ({order_free})")
     return dict(err=max(err), ms=ms16, plain_ms=plain_ms,
                 bound=bnd, gap=dv, plain_gap=dv_plain)
+
+
+# phase 17a's synthetic d=3 plans (torch_bf16_checks.masked_plan, M=320,
+# T=128): label, cells as (valid nodes, share of them with gradient
+# rows), tiles
+BF16_PLANS = (("full cell", ((320, 1.0), (320, 1.0)), 24),
+              ("empty cell", ((0, 1.0), (0, 1.0)), 8),
+              ("gradflag 0 on some nodes", ((320, 0.6), (200, 0.5),
+                                            (97, 0.0)), 24))
+
+
+def check_bf16_synthetic(card, tile_ops):
+    """Phase 17a on BF16_PLANS: a full cell (80 kept stages, the shared
+    memory's worst case), empty cells (no kept stage: the outputs are the
+    constants) and cells with gradient-free nodes (masked rows inside kept
+    stages). Each against the bf16 plain version and the packed one on
+    the card (torch_bf16_checks.variance_limits), f and g bitwise the f32
+    kernel's, one bf16 launch and no f32 one."""
+    import torch_bf16_checks as bc
+    kwargs = dict(d=3, scale=1.2, val_const=1.01, grad_const=3.0 / 1.44 + 0.1)
+    for i, (label, cells, nt) in enumerate(BF16_PLANS):
+        args = bc.masked_plan(np.random.default_rng(170 + i), 3, 320, 128,
+                              nt, cells, kwargs["scale"], device="cuda")
+        act = args[0] >= 0
+        before = (tile_ops.launches, tile_ops.launches_bf16)
+        out = tile_ops.tile_eval(*args, **kwargs, bf16=True)
+        torch.cuda.synchronize()
+        counted = (tile_ops.launches - before[0],
+                   tile_ops.launches_bf16 - before[1])
+        f32 = tile_ops.tile_eval(*args, **kwargs)
+        lims = bc.variance_limits(args, kwargs, KERNEL_TOL)
+        over = {}
+        for name, ref in (
+                ("plain", tile_ops.tile_eval_reference(*args, **kwargs,
+                                                       bf16=True)),
+                ("packed", tile_ops.tile_eval_packed_reference(*args,
+                                                               **kwargs))):
+            over[name] = [float(x[act].max())
+                          for x in bc.shares(out, ref, lims)]
+        same_fg = all(torch.equal(a[act], b[act])
+                      for a, b in zip(out[:2], f32[:2]))
+        per_tile, _, nk_cap = kept_share(tile_ops, args, 3)
+        ms = cuda_ms(lambda: tile_ops.tile_eval(*args, **kwargs, bf16=True),
+                     5)
+        print(f"phase 17a: bf16 kernel, synthetic d=3 plan, {label} (NT="
+              f"{nt}, {int(act.sum())} active, M=320, T=128): kept stages "
+              f"{per_tile:.4f} of all per active tile, at most {nk_cap}; "
+              f"largest share of its variance limit vs the bf16 plain "
+              f"version {over['plain'][0]:.3g} {over['plain'][1]:.3g}, vs "
+              f"the packed one {over['packed'][0]:.3g} "
+              f"{over['packed'][1]:.3g}; f and g vs the f32 kernel: "
+              f"{'bitwise equal' if same_fg else 'DIFFER'}; launches "
+              f"f32/bf16 {counted[0]}/{counted[1]}; {ms:.3f} ms through "
+              f"tile_eval ({card})", flush=True)
+        if max(over["plain"] + over["packed"]) > 1.0 or not same_fg:
+            fail(f"bf16 kernel, synthetic plan {label}: variances beyond "
+                 f"their limits ({over}) or f and g differ from the f32 "
+                 f"kernel's ({same_fg})")
+        if counted != (0, 1):
+            fail(f"bf16 kernel, synthetic plan {label}: launches f32/bf16 "
+                 f"{counted}, not 0/1")
+        if not all(bool(torch.isfinite(x[act]).all()) for x in out):
+            fail(f"bf16 kernel, synthetic plan {label}: outputs not finite")
+        if label == "empty cell" and not (
+                bool((out[0][act] == 0).all())
+                and bool((out[2][act] == kwargs["val_const"]).all())
+                and bool((out[3][act] == kwargs["grad_const"]).all())):
+            fail("bf16 kernel, empty cells: outputs are not 0 and the "
+                 "prior variances")
+        if label == "full cell" and nk_cap != 80:
+            fail(f"bf16 kernel, full cells: {nk_cap} kept stages, not 80")
 
 
 def blend_choice(top, pairs, nq, var_thre):
@@ -2101,6 +2251,7 @@ def run_bf16(card, tile_ops, cluster, plans, maps):
     t_phase = time.time()
     kern = {label: check_bf16_kernel(card, tile_ops, label, captured)
             for label, captured in plans}
+    check_bf16_synthetic(card, tile_ops)
     n_bf16 = {}
 
     def plain_tile(*args, **kwargs):
@@ -2215,6 +2366,18 @@ def run_bf16(card, tile_ops, cluster, plans, maps):
                  f"plain version's test() beyond their limits ({share})")
         if not np.isfinite(r1).all() or r1.shape != r0.shape:
             fail(f"phase 17b {label}: bf16 test() output not finite")
+    # ---- 17c: the bf16 kernel alone on phase 4's and 7's plans, from
+    # a profiler trace, last, so that CUPTI runs beside no other timing
+    for label, (args, kwargs) in plans:
+        kwargs = {k: v for k, v in kwargs.items() if k != "bf16"}
+        kern[label]["kernel_ms"] = alone = kernel_alone_ms(
+            lambda: tile_ops.tile_eval(*args, **kwargs, bf16=True),
+            "tile_eval_bf16_kernel", 5)
+        print(f"phase 17c: bf16 kernel, {label}: the kernel alone "
+              f"{'not measured' if alone is None else f'{alone:.3f} ms'} "
+              f"(profiler, 5 calls), through tile_eval "
+              f"{kern[label]['ms']:.3f} ms (CUDA events) ({card})",
+              flush=True)
     print(f"  phase 17 wall {time.time() - t_phase:.1f} s", flush=True)
     return dict(kernel=kern, launches=n_bf16)
 
@@ -2248,14 +2411,16 @@ def main() -> int:
     t0 = time.time()
     builds = {"index": index_mod.build_library,
               "tile_eval": tile_ops.build_library,
+              "tile_eval_bf16": tile_ops.build_library_bf16,
               "chol": chol_ops.build_library}
     with ThreadPoolExecutor(len(builds)) as ex:
         futures = {name: ex.submit(fn) for name, fn in builds.items()}
         logs = {name: f.result() for name, f in futures.items()}
-    print(f"phase 2: built the index, tile and chol kernel libraries in "
-          f"{time.time() - t0:.1f} s", flush=True)
-    for name in ("tile_eval", "chol"):
-        ptxas_lines(name, logs[name])
+    print(f"phase 2: built the index, tile, bf16 tile and chol kernel "
+          f"libraries in {time.time() - t0:.1f} s with nvcc "
+          f"({nvcc_version()})", flush=True)
+    ptx = {name: ptxas_lines(name, logs[name])
+           for name in ("tile_eval", "tile_eval_bf16", "chol")}
 
     dev = torch.device("cuda")
     gazebo = torch_scenes.gazebo_path()
@@ -2309,10 +2474,12 @@ def main() -> int:
     chol_err = max(r["chol_err"] for r in rows)
     linv_err = max(r["linv_err"] for r in rows)
     headline = rows[-1]                     # B=64 at MP=384
+    bucket_rows = rows[-3:-1]               # B=64 at MP=96 and 192
     del warm, cap, cap_fit, cap_fill, args, kwargs, systems
 
     # ---- phase 4: the main path at full size ----
     m = GPisMap2D(device=dev)
+    by_size = BySize(chol_ops).__enter__()    # to phase 5's update
     with Capture(tile_ops, "tile_eval") as cap:
         tile_ops.launches = tile_ops.launches_bf16 = 0
         chol_ops.chol_launches = chol_ops.linv_launches = 0
@@ -2405,6 +2572,9 @@ def main() -> int:
     torch.cuda.synchronize()
     t_refresh = time.time() - t0
     refresh = (chol_ops.chol_launches, chol_ops.linv_launches)
+    by_size.__exit__()
+    bucket2 = {n: (by_size.at("chol", n), by_size.at("linv", n))
+               for n in (96, 192, 384)}
     if m._factors is None or m._factors[1] is not uniq:
         fail("the re-ingested frame dropped the factor cache instead of "
              "refreshing it")
@@ -2429,6 +2599,9 @@ def main() -> int:
           f"{rel_cache:.3g}); test() through it vs a fresh fill at 4096 "
           f"random points: max abs diff "
           + " ".join(f"{v:.3g}" for v in d_refresh) + f" ({card})",
+          flush=True)
+    print("  chol/linv calls by size on phases 4-5: "
+          + ", ".join(f"n={n} {c}/{w}" for n, (c, w) in bucket2.items()),
           flush=True)
     if rel_cache > LINV_REL_TOL:
         fail(f"refreshed factor cache differs from a fresh fill by "
@@ -2508,6 +2681,7 @@ def main() -> int:
            ("obs_compacted_3d_update_test", n12["compacted"]),
            ("table_test_3d", n13["3D"]), ("two_phase_map_test_3d", n14["3D"]),
            ("strict_3d_update_test", n15["strict_3d"]),
+           ("fused_3d_update_test", n15["fused_3d"]),
            ("snapshot_3d_update_test", n15["snapshot_3d"]))
     r2d += tuple((k, n16[k]) for k in ("mesh_2d_update_test",
                                        "mesh_2rank_2d_update_test"))
@@ -2552,6 +2726,19 @@ def main() -> int:
                      h640["linv_err"],
                      h640["linv_ms"], h640["linv_plain_ms"], h640["bound"],
                      h640["linv_library_ms"])]
+    # the 2D retrain's smaller buckets: phase 3b's synthetic B=64 rows,
+    # the calls at that size on phases 4-5
+    for (n, (n_chol, n_linv)), row in zip(list(bucket2.items())[:2],
+                                          bucket_rows):
+        kernels += [
+            kernel_entry(f"chol (n={n})", f"{pc}:167",
+                         {"update_test": n_chol}, row["chol_err"],
+                         row["chol_ms"], row["chol_plain_ms"], row["bound"],
+                         row["chol_library_ms"]),
+            kernel_entry(f"linv (n={n})", f"{pc}:188",
+                         {"update_test": n_linv}, row["linv_err"],
+                         row["linv_ms"], row["linv_plain_ms"], row["bound"],
+                         row["linv_library_ms"])]
     tb = ("gpismap_tpu/ops/pallas_tile.py:118 (bf16=True; _make_kernel :36, "
           "branch :95-104)")
     for dd, path, key in ((2, "2D", "d=2"), (3, "3D", "d=3")):
@@ -2561,7 +2748,10 @@ def main() -> int:
             {"update_test": r3["tile_bf16_launches"] if dd == 3
              else launches_bf16, f"bf16_test_{dd}d": b17["launches"][path]},
             k["err"], k["ms"], k["plain_ms"], k["bound"], None,
-            main=f"bf16_test_{dd}d"))
+            main=f"bf16_test_{dd}d", library="none",
+            kernel_alone_ms=k["kernel_ms"],
+            ptxas=[ln for ln in ptx["tile_eval_bf16"]
+                   if f"d={dd})" in ln]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

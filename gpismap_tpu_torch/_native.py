@@ -11,7 +11,7 @@ from __future__ import annotations
 import os
 import subprocess
 import threading
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 REPO_DIR = os.path.dirname(PKG_DIR)
@@ -26,16 +26,19 @@ _LOCKS: Dict[str, threading.Lock] = {}
 _LOCKS_LOCK = threading.Lock()
 
 
-def build(src: str, name: str, compiler: List[str]) -> Tuple[str, str]:
+def build(src: str, name: str, compiler: List[str],
+          deps: Sequence[str] = ()) -> Tuple[str, str]:
     """Compile `src` into BUILD_DIR/name with `compiler` (argv without the
-    output and source). Returns (library path, compiler output; "" when
-    the library was already up to date)."""
+    output and source); `deps` are the headers it includes, which make
+    the library stale too. Returns (library path, compiler output; ""
+    when the library was already up to date)."""
     out = os.path.join(BUILD_DIR, name)
     with _LOCKS_LOCK:
         lock = _LOCKS.setdefault(name, threading.Lock())
     with lock:
-        if (os.path.exists(out)
-                and os.path.getmtime(out) >= os.path.getmtime(src)):
+        if (os.path.exists(out) and all(
+                os.path.getmtime(out) >= os.path.getmtime(f)
+                for f in (src, *deps))):
             return out, ""
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"

@@ -1,8 +1,8 @@
 """User-facing 3D online GPIS mapper on PyTorch.
 
-Port of gpismap_tpu/api3d.py:GPisMap3D with its "hybrid", "strict" and
-"snapshot" re-evaluation modes. The command surface is the reference's
-(update/test/reset/setCamera/getAllPoints; GPisMap3.h:124-133,
+Port of gpismap_tpu/api3d.py:GPisMap3D with its "hybrid", "fused",
+"strict" and "snapshot" re-evaluation modes. The command surface is the
+reference's (update/test/reset/setCamera/getAllPoints; GPisMap3.h:124-133,
 mexGPisMap3.cpp:111-157); the host orchestration it shares with
 GPisMap2D lives in api._MapperBase.
 
@@ -52,19 +52,24 @@ class GPisMap3D(_MapperBase):
     strict_reeval, else "snapshot"):
       * "hybrid": the reference's strict per-cell order as one vectorized
         pass plus mover fix-up rounds (mapper3d.reeval_hybrid_3d);
+      * "fused": the same order as one scan over the kept cells, each
+        step re-evaluating the nodes its cell holds at that point
+        (mapper3d.reeval_scan_3d; observably equal to "hybrid" at a
+        sequential depth of one step per cell);
       * "strict": the host replay of that order, one reeval_3d per kept
         cell, each cell's nodes gathered after the earlier cells'
         mutations;
       * "snapshot": one reeval_3d over a start-of-frame snapshot of every
         kept cell's nodes.
-    The JAX package's "fused" scan, which "hybrid" replaced, raises
-    NotImplementedError.
+    "hybrid" and "fused" apply their final per-node actions on the host
+    index once, at the end of the frame.
 
     mesh (parallel.mesh.Mesh) runs the loop on every rank of the mesh
     (see api._MapperBase): the "strict" and "snapshot" re-evaluations
     split their nodes over the ranks and all-gather them; the frame's
-    observation GP and probe sweep, and the "hybrid" re-evaluation,
-    whose mover fix-up rounds depend on every node, run replicated.
+    observation GP and probe sweep, and the "hybrid" and "fused"
+    re-evaluations, whose later steps depend on every node, run
+    replicated.
     device defaults to the card, or to the mesh's device.
     """
 
@@ -82,10 +87,6 @@ class GPisMap3D(_MapperBase):
             reeval_mode = "hybrid" if strict_reeval else "snapshot"
         if reeval_mode not in ("strict", "fused", "hybrid", "snapshot"):
             raise ValueError(f"unknown reeval_mode {reeval_mode!r}")
-        if reeval_mode == "fused":
-            raise NotImplementedError(
-                "reeval_mode='fused': 'hybrid' replaced the JAX package's "
-                "fused scan and gives its results; use 'hybrid'")
         self.reeval_mode = reeval_mode
         self.strict_reeval = reeval_mode != "snapshot"
         self.cam = camera or CameraParam()
@@ -255,7 +256,7 @@ class GPisMap3D(_MapperBase):
         if self.reeval_mode == "strict":
             for c in kept:
                 self._reeval_apply(obs, self.index.cell_nodes(c), tr, rot)
-        elif self.reeval_mode == "hybrid":
+        elif self.reeval_mode in ("fused", "hybrid"):
             disp = self._dispatch_reeval_fused(obs, kept, tr, rot)
             if disp is not None:
                 self._apply_reeval_fused(*disp)
@@ -279,9 +280,10 @@ class GPisMap3D(_MapperBase):
         self._apply_reeval(node_ids, _to_numpy(self._gather(rv)))
 
     def _dispatch_reeval_fused(self, obs, kept, tr, rot):
-        """Gather the kept cells' nodes and run reeval_hybrid_3d on them.
-        Returns (node_ids, Reeval3D on the host, n_dropped), or None when
-        the cells hold no nodes."""
+        """Gather the kept cells' nodes and run reeval_hybrid_3d
+        ("hybrid") or reeval_scan_3d ("fused") on them. Returns
+        (node_ids, Reeval3D on the host, n_dropped), or None when the
+        cells hold no nodes."""
         lists = [self.index.cell_nodes(c) for c in kept]
         node_ids = np.concatenate(lists)
         if len(node_ids) == 0:
@@ -289,17 +291,29 @@ class GPisMap3D(_MapperBase):
         sel, valid = _pad_ids(node_ids)
         d = self.index.get_nodes(sel)
         centers, _, _ = self.index.cell_info(kept)
-        cpad = _next_pow2(len(kept), lo=8)
+        # "hybrid" pads the cells to a power of two; the scan of "fused"
+        # steps through the kept cells only (a padded one changes nothing)
+        cpad = (_next_pow2(len(kept), lo=8) if self.reeval_mode == "hybrid"
+                else len(kept))
         cc = np.zeros((cpad, 3), np.int32)
         cc[:len(kept)] = np.floor(centers / self.cell_size).astype(np.int32)
         cok = np.zeros(cpad, bool)
         cok[:len(kept)] = True
-        rv, drop = mapper3d.reeval_hybrid_3d(
-            obs, self._t(d["pos"]), self._t(d["grad"]),
-            self._t(d["pos_sig"]), self._t(d["grad_sig"]), self._t(valid),
-            self._t(cc), self._t(cok), self._t(tr), self._t(rot),
-            np.float32(self.cell_size), self.p, self.op,
-            chunk=self._obs_chunk, compat=self.compat_reloc)
+        args = (obs, self._t(d["pos"]), self._t(d["grad"]),
+                self._t(d["pos_sig"]), self._t(d["grad_sig"]),
+                self._t(valid), self._t(cc), self._t(cok), self._t(tr),
+                self._t(rot), np.float32(self.cell_size), self.p, self.op)
+        kw = dict(chunk=self._obs_chunk, compat=self.compat_reloc)
+        if self.reeval_mode == "hybrid":
+            rv, drop = mapper3d.reeval_hybrid_3d(*args, **kw)
+        else:
+            # members a scan step takes: twice the largest cell at the
+            # start of the frame (for nodes relocated into it), at least
+            # 512 and at most every node (gpismap_tpu/api3d.py:371-381);
+            # the rest are counted in n_dropped
+            kc = min(max(_next_pow2(2 * max(len(li) for li in lists)), 512),
+                     _next_pow2(len(node_ids)))
+            rv, drop = mapper3d.reeval_scan_3d(*args, kc=kc, **kw)
         return node_ids, _to_numpy(rv), drop
 
     def _apply_reeval_fused(self, node_ids, rv, drop) -> None:

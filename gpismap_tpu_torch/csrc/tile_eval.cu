@@ -61,34 +61,12 @@
 // registers or fewer, so two blocks share an SM.
 // No TF32 and no wgmma: the variance is a cancellation (const - sum), and
 // TF32 error would flip the var_thre blend
-// (gpismap_tpu/models/cluster.py:1086-1109).
-//
-// The bf16 variant (tile_eval_kernel<D, true>, entry tile_eval_bf16_launch)
-// replaces the same Pallas kernel's bf16=True branch
-// (gpismap_tpu/ops/pallas_tile.py:95-104), the opt-in GPISMAP_PALLAS_BF16
-// query path: V = bf16(L^-1) bf16(K*) with f32 accumulation, everything
-// else f32. It runs the f32 kernel's blocking, stage order and mean code:
-// K* entries and the mean partials are computed in f32 from registers
-// exactly as above (so f and g are bitwise the f32 kernel's); then each
-// K* entry is rounded to bf16 (round-to-nearest-even) into a K*-column-
-// major stage [BN][BK + 8], and each L^-1 stage, read as f32 from global
-// memory, is rounded into a row-major stage [BM][BK + 8] (rows of 48 B,
-// so ldmatrix reads them without bank conflicts). A 16-deep stage is one
-// k-step of mma.sync.m16n8k16 (bf16 in, f32 accumulators): the 8 warps
-// tile the block's 128 L^-1 rows x 128 K* columns as 2 x 4 warps of 64 x
-// 32, 4 x 4 mma tiles and 64 accumulators per thread. At the end of a row
-// panel each thread squares its accumulators into 8 column partials; the
-// epilogue sums the 8 lanes of a column with fixed __shfl_xor_sync steps
-// and the two warp rows through shared memory in a fixed order, so this
-// variant too is free of atomics and bitwise batch-independent. What
-// bounds it: the product leaves the fp32 FMA pipe for the tensor cores
-// (989 TFLOP/s dense bf16), so the K* entries (one sqrtf and one expf
-// each, rebuilt for every row panel) and the stream of L^-1 remain.
-// Shared memory: 24 KB of stages, then the f32 kernel's partials, queries
-// and cell inputs: 30.2 KB at d=2/M=128, 38.7 KB at d=3/M=320.
-#include <cstdint>
-#include <cuda_bf16.h>
+// (gpismap_tpu/models/cluster.py:1086-1109). The Pallas kernel's bf16
+// variant (bf16=True) is the kernel of tile_eval_bf16.cu; both compute K*
+// with kstar<D> of tile_kstar.cuh.
 #include <cuda_runtime.h>
+
+#include "tile_kstar.cuh"
 
 namespace {
 
@@ -100,65 +78,16 @@ constexpr int LDL = BM + 4;          // row of a transposed L^-1 stage
 constexpr int STAGE_L = BK * LDL;    // floats of one L^-1 stage
 constexpr int STAGE_K = BK * BN;     // floats of one K* stage
 constexpr int KROWS = BK * BN / NTHREADS;   // K* entries per thread, stage
-constexpr float SQRT3 = 1.7320508075688772f;
 static_assert(NTHREADS == (BM / 8) * (BN / 8), "8x8 accumulator per thread");
 static_assert(NTHREADS == 2 * BN && KROWS == 8, "K* stage: 8 rows x 1 column");
 static_assert(BM * BK == 8 * NTHREADS, "L^-1 stage: two float4 per thread");
 static_assert(16 * BN <= 2 * STAGE_L, "epilogue partials fit the L stages");
-// the bf16 variant's stages: L^-1 rows and K* columns of BK bf16 each,
-// padded to 48 B
-constexpr int LDH = BK + 8;                 // bf16 per row of a stage
-constexpr int STAGE_LH = BM * LDH;          // bf16 of one L^-1 stage
-constexpr int STAGE_KH = BN * LDH;          // bf16 of one K* stage
-static_assert(BK == 16, "a bf16 stage is one k-step of mma.m16n8k16");
-static_assert(NTHREADS == 8 * 32 && BM == 2 * 64 && BN == 4 * 32,
-              "bf16: 2 x 4 warps of 64 x 32");
-static_assert(2 * BN <= STAGE_LH, "bf16 epilogue partials fit the stages");
 
-// floats of the double-buffered stages at the start of shared memory
-template <bool BF16>
-__host__ __device__ constexpr size_t stage_floats() {
-  return BF16 ? (2 * (size_t)STAGE_LH + 2 * STAGE_KH) / 2
-              : 2 * (size_t)STAGE_L + 2 * STAGE_K;
-}
-
-template <int D, bool BF16>
-__host__ inline size_t smem_bytes(int m) {
-  return sizeof(float) * (stage_floats<BF16>() + NTHREADS + D * BN +
-                          (size_t)(D + 2) * m + (size_t)(1 + D) * m);
-}
-
-// K*[r][c] for support row r < MP (row block rb = r / m, node k = r % m)
-// and a column of derivative block cblk in 0..D whose query is q, as
-// gpismap_tpu/ops/pallas_tile.py:59-82 builds it: row block 0 masked by
-// valid, the gradient blocks by gradflag * valid.
 template <int D>
-__device__ __forceinline__ float kstar(int rb, int k, int cblk,
-                                       const float (&q)[D], const float* xsm,
-                                       const float* vms, const float* gms,
-                                       int m, float a, float a2) {
-  float dd[D];
-#pragma unroll
-  for (int i = 0; i < D; ++i) dd[i] = xsm[i * m + k] - q[i];
-  float r2 = dd[0] * dd[0];
-#pragma unroll
-  for (int i = 1; i < D; ++i) r2 += dd[i] * dd[i];
-  const float r = sqrtf(r2);
-  const float e = expf(-a * r);
-  float dr = 0.f, dc = 0.f;
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-    if (rb == 1 + i) dr = dd[i];
-    if (cblk == 1 + i) dc = dd[i];
-  }
-  if (rb == 0) {
-    const float vm = vms[k];
-    return cblk == 0 ? (1.f + a * r) * e * vm : a2 * dc * e * vm;
-  }
-  const float gm = gms[k];
-  if (cblk == 0) return -(a2 * dr * e) * gm;
-  const float inv_r = r > 0.f ? 1.f / r : 0.f;
-  return a2 * ((rb == cblk ? 1.f : 0.f) - a * dr * dc * inv_r) * e * gm;
+__host__ inline size_t smem_bytes(int m) {
+  return sizeof(float) * (2 * (size_t)STAGE_L + 2 * STAGE_K + NTHREADS +
+                          D * BN +
+                          (size_t)(D + 2) * m + (size_t)(1 + D) * m);
 }
 
 // This thread's 8 elements of the L^-1 stage (rows i0.., columns k0..):
@@ -197,47 +126,7 @@ __device__ __forceinline__ void store_l(const float (&pr)[8], float* ls) {
       ls[(kc + j) * LDL + r + 64 * h] = pr[4 * h + j];
 }
 
-// The bf16 variant's L^-1 stage: pr rounded to bf16 (nearest even) into
-// lh [BM][LDH], row-major: lh[row][k].
-__device__ __forceinline__ void store_l_bf16(const float (&pr)[8],
-                                             __nv_bfloat16* lh) {
-  const int kc = 4 * (threadIdx.x & 3), r = threadIdx.x >> 2;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(pr[4 * h], pr[4 * h + 1]);
-    const __nv_bfloat162 hi =
-        __floats2bfloat162_rn(pr[4 * h + 2], pr[4 * h + 3]);
-    uint2 u;
-    u.x = *reinterpret_cast<const uint32_t*>(&lo);
-    u.y = *reinterpret_cast<const uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(lh + (r + 64 * h) * LDH + kc) = u;
-  }
-}
-
-// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-// c += a b on one m16n8k16 tile: bf16 multiplicands, f32 accumulators
-// (c0, c1: row lane / 4, columns 2 (lane % 4) + 0, 1; c2, c3: row + 8).
-__device__ __forceinline__ void mma_bf16(float& c0, float& c1, float& c2,
-                                         float& c3, const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c0), "+f"(c1), "+f"(c2), "+f"(c3)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-template <int D, bool BF16>
+template <int D>
 __global__ void __launch_bounds__(NTHREADS, 2)
 tile_eval_kernel(const int* __restrict__ tile_seg,
                  const float* __restrict__ linv,
@@ -261,10 +150,7 @@ tile_eval_kernel(const int* __restrict__ tile_seg,
   extern __shared__ __align__(16) float smem[];
   float* ls = smem;                             // [2][BK][LDL]
   float* ks = ls + 2 * STAGE_L;                 // [2][BK][BN]
-  // bf16: [2][BM][LDH] L^-1 stages, then [2][BN][LDH] K* stages
-  __nv_bfloat16* lh = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* kh = lh + 2 * STAGE_LH;
-  float* msm = smem + stage_floats<BF16>();     // [NTHREADS] mean partials
+  float* msm = ks + 2 * STAGE_K;                // [NTHREADS] mean partials
   float* qsm = msm + NTHREADS;                  // [D][BN]
   float* xsm = qsm + D * BN;                    // [D][m]
   float* vms = xsm + D * m;                     // [m] valid
@@ -305,17 +191,15 @@ tile_eval_kernel(const int* __restrict__ tile_seg,
   // ---- variance colsum((L^-1 K*)^2) over the lower triangle, and the
   // mean alpha^T K* (pallas_tile.py:85-91) from the last row panel's
   // stages, which cover every row ----
-  // stage b of K* <- rows k0 + kr0 .. + 7 at this thread's column (f32:
-  // ks [BK][BN]; bf16: kh [BN][LDH], rounded after the mean has read them);
+  // ks[buf] [BK][BN] <- rows k0 + kr0 .. + 7 of K* at this thread's column;
   // with `mean`, their alpha-weighted sum is added to msm[tid]
-  auto compute_k = [&](int k0, int b, bool mean) {
+  auto compute_k = [&](int k0, float* kst, bool mean) {
     float q[D];
 #pragma unroll
     for (int i = 0; i < D; ++i) q[i] = qsm[i * BN + col];
     const int r0 = k0 + kr0;
     int rb = r0 / m, k = r0 - rb * m;
     float ms = 0.f;
-    float kv[KROWS];
 #pragma unroll
     for (int i = 0; i < KROWS; ++i) {
       float v = 0.f;
@@ -323,25 +207,11 @@ tile_eval_kernel(const int* __restrict__ tile_seg,
         v = kstar<D>(rb, k, cblk, q, xsm, vms, gms, m, a, a2);
         if (mean) ms = fmaf(als[r0 + i], v, ms);
       }
-      if constexpr (BF16)
-        kv[i] = v;
-      else
-        ks[b * STAGE_K + (kr0 + i) * BN + col] = v;
+      kst[(kr0 + i) * BN + col] = v;
       if (++k == m) {
         k = 0;
         ++rb;
       }
-    }
-    if constexpr (BF16) {
-      uint4 u;
-      uint32_t* w = reinterpret_cast<uint32_t*>(&u);
-#pragma unroll
-      for (int i = 0; i < KROWS / 2; ++i) {
-        const __nv_bfloat162 h = __floats2bfloat162_rn(kv[2 * i],
-                                                       kv[2 * i + 1]);
-        w[i] = *reinterpret_cast<const uint32_t*>(&h);
-      }
-      *reinterpret_cast<uint4*>(kh + b * STAGE_KH + col * LDH + kr0) = u;
     }
     if (mean) msm[tid] += ms;
   };
@@ -355,22 +225,10 @@ tile_eval_kernel(const int* __restrict__ tile_seg,
 #pragma unroll
     for (int v = 0; v < 8; ++v) acc[u][v] = 0.f;
   }
-  // bf16: this warp's 64 x 32 quarter of the block, and its lane's
-  // ldmatrix rows (A: L^-1 rows, B: K* columns)
-  const int lane = tid & 31, wm = tid >> 7, wn = (tid >> 5) & 3;
-  const int a_off = (64 * wm + (lane & 15)) * LDH + (lane >> 4) * 8;
-  const int b_off = (32 * wn + (lane & 7) + ((lane >> 4) << 3)) * LDH +
-                    ((lane >> 3) & 1) * 8;
-  auto put_l = [&](int b) {
-    if constexpr (BF16)
-      store_l_bf16(pr, lh + b * STAGE_LH);
-    else
-      store_l(pr, ls + b * STAGE_L);
-  };
   int i0 = 0, k0 = 0, buf = 0;
   load_l(L, mp, vec, i0, k0, pr);
-  put_l(0);
-  compute_k(k0, 0, i0 == last_i0);
+  store_l(pr, ls);
+  compute_k(k0, ks, i0 == last_i0);
   for (;;) {
     // the next stage: k0 + BK in this panel, or the next panel's first
     int ni0 = i0, nk0 = k0 + BK;
@@ -381,51 +239,22 @@ tile_eval_kernel(const int* __restrict__ tile_seg,
     const bool more = ni0 < mp;
     __syncthreads();                             // stage buf is written
     if (more) load_l(L, mp, vec, ni0, nk0, pr);  // in flight over the FMAs
-    if constexpr (BF16) {
-      // one k-step: acc[2 mt + c / 2][2 nt + c % 2] is accumulator c of
-      // mma tile (mt, nt), rows 64 wm + 16 mt + lane / 4 (+ 8), columns
-      // 32 wn + 8 nt + 2 (lane % 4) (+ 1)
-      const __nv_bfloat16* lhb = lh + buf * STAGE_LH + a_off;
-      const __nv_bfloat16* khb = kh + buf * STAGE_KH + b_off;
-      uint32_t bf[4][2];
+    const float* lsb = ls + buf * STAGE_L;
+    const float* ksb = ks + buf * STAGE_K;
 #pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t r[4];
-        ldsm_x4(r, khb + 16 * np * LDH);
-        bf[2 * np][0] = r[0];
-        bf[2 * np][1] = r[1];
-        bf[2 * np + 1][0] = r[2];
-        bf[2 * np + 1][1] = r[3];
-      }
+    for (int kk = 0; kk < BK; ++kk) {
+      const float* la = lsb + kk * LDL + 4 * ty;
+      const float* kb = ksb + kk * BN + 4 * tx;
+      const float4 a0 = *reinterpret_cast<const float4*>(la);
+      const float4 a1 = *reinterpret_cast<const float4*>(la + 64);
+      const float4 b0 = *reinterpret_cast<const float4*>(kb);
+      const float4 b1 = *reinterpret_cast<const float4*>(kb + 64);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        uint32_t af[4];
-        ldsm_x4(af, lhb + 16 * mt * LDH);
+      for (int u = 0; u < 8; ++u)
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          mma_bf16(acc[2 * mt][2 * nt], acc[2 * mt][2 * nt + 1],
-                   acc[2 * mt + 1][2 * nt], acc[2 * mt + 1][2 * nt + 1], af,
-                   bf[nt]);
-      }
-    } else {
-      const float* lsb = ls + buf * STAGE_L;
-      const float* ksb = ks + buf * STAGE_K;
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        const float* la = lsb + kk * LDL + 4 * ty;
-        const float* kb = ksb + kk * BN + 4 * tx;
-        const float4 a0 = *reinterpret_cast<const float4*>(la);
-        const float4 a1 = *reinterpret_cast<const float4*>(la + 64);
-        const float4 b0 = *reinterpret_cast<const float4*>(kb);
-        const float4 b1 = *reinterpret_cast<const float4*>(kb + 64);
-        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int u = 0; u < 8; ++u)
-#pragma unroll
-          for (int v = 0; v < 8; ++v)
-            acc[u][v] = fmaf(av[u], bv[v], acc[u][v]);
-      }
+        for (int v = 0; v < 8; ++v) acc[u][v] = fmaf(av[u], bv[v], acc[u][v]);
     }
     if (nk0 == 0) {                              // the panel is finished
 #pragma unroll
@@ -438,45 +267,26 @@ tile_eval_kernel(const int* __restrict__ tile_seg,
     }
     if (!more) break;
     // the other buffer was last read before this iteration's barrier
-    put_l(buf ^ 1);
-    compute_k(nk0, buf ^ 1, ni0 == last_i0);
+    store_l(pr, ls + (buf ^ 1) * STAGE_L);
+    compute_k(nk0, ks + (buf ^ 1) * STAGE_K, ni0 == last_i0);
     buf ^= 1;
     i0 = ni0;
     k0 = nk0;
   }
 
-  // ---- the column partials (f32: the 16 thread rows; bf16: the 8 lanes
-  // of a column in a warp, then the 2 warp rows) and the two mean halves,
+  // ---- the 16 thread rows' column partials and the two mean halves,
   // summed in a fixed order ----
   __syncthreads();                               // the last stage is read
-  float* red = ls;                               // [16][BN] (bf16: [2][BN])
-  if constexpr (BF16) {
-#pragma unroll
-    for (int v = 0; v < 8; ++v) {
-      sq[v] += __shfl_xor_sync(0xffffffffu, sq[v], 4);
-      sq[v] += __shfl_xor_sync(0xffffffffu, sq[v], 8);
-      sq[v] += __shfl_xor_sync(0xffffffffu, sq[v], 16);
-    }
-    if (lane < 4) {
-#pragma unroll
-      for (int v = 0; v < 8; ++v)
-        red[wm * BN + 32 * wn + 8 * (v >> 1) + 2 * lane + (v & 1)] = sq[v];
-    }
-  } else {
-    *reinterpret_cast<float4*>(red + ty * BN + 4 * tx) =
-        make_float4(sq[0], sq[1], sq[2], sq[3]);
-    *reinterpret_cast<float4*>(red + ty * BN + 64 + 4 * tx) =
-        make_float4(sq[4], sq[5], sq[6], sq[7]);
-  }
+  float* red = ls;                               // [16][BN]
+  *reinterpret_cast<float4*>(red + ty * BN + 4 * tx) =
+      make_float4(sq[0], sq[1], sq[2], sq[3]);
+  *reinterpret_cast<float4*>(red + ty * BN + 64 + 4 * tx) =
+      make_float4(sq[4], sq[5], sq[6], sq[7]);
   __syncthreads();
   if (tid < BN && cblk >= 0) {
     float s = 0.f;
-    if constexpr (BF16) {
-      s = red[tid] + red[BN + tid];
-    } else {
 #pragma unroll
-      for (int y = 0; y < 16; ++y) s += red[y * BN + tid];
-    }
+    for (int y = 0; y < 16; ++y) s += red[y * BN + tid];
     const float mean = msm[tid] + msm[BN + tid];
     const int qj = gcol % t;
     if (cblk == 0) {
@@ -489,49 +299,24 @@ tile_eval_kernel(const int* __restrict__ tile_seg,
   }
 }
 
-template <int D, bool BF16>
+template <int D>
 int launch(const int* tile_seg, const float* linv, const float* xt,
            const float* alpha, const float* gradflag, const float* valid,
            const float* qt, float* f_out, float* g_out, float* vf_out,
            float* vg_out, int nt, int n_seg, int m, int t, float scale,
            float val_const, float grad_const, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D, BF16>(m);
+  const size_t smem = smem_bytes<D>(m);
   cudaError_t err = cudaFuncSetAttribute(
-      tile_eval_kernel<D, BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      tile_eval_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long n_cb = ((long long)t * (1 + D) + BN - 1) / BN;
   const long long n_blocks = (long long)nt * n_cb;
   if (n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  tile_eval_kernel<D, BF16><<<(unsigned)n_blocks, NTHREADS, smem, stream>>>(
+  tile_eval_kernel<D><<<(unsigned)n_blocks, NTHREADS, smem, stream>>>(
       tile_seg, linv, xt, alpha, gradflag, valid, qt, f_out, g_out, vf_out,
       vg_out, n_seg, m, t, scale, val_const, grad_const);
   return (int)cudaGetLastError();
-}
-
-template <bool BF16>
-int launch_d(const int* tile_seg, const float* linv, const float* xt,
-             const float* alpha, const float* gradflag, const float* valid,
-             const float* qt, float* f_out, float* g_out, float* vf_out,
-             float* vg_out, int nt, int n_seg, int d, int m, int t,
-             float scale, float val_const, float grad_const, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (d == 2)
-    return launch<2, BF16>(tile_seg, linv, xt, alpha, gradflag, valid, qt,
-                           f_out, g_out, vf_out, vg_out, nt, n_seg, m, t,
-                           scale, val_const, grad_const, s);
-  if (d == 3)
-    return launch<3, BF16>(tile_seg, linv, xt, alpha, gradflag, valid, qt,
-                           f_out, g_out, vf_out, vg_out, nt, n_seg, m, t,
-                           scale, val_const, grad_const, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-template <bool BF16>
-long long smem_bytes_d(int d, int m) {
-  if (d == 2) return (long long)smem_bytes<2, BF16>(m);
-  if (d == 3) return (long long)smem_bytes<3, BF16>(m);
-  return 0;
 }
 
 }  // namespace
@@ -539,40 +324,31 @@ long long smem_bytes_d(int d, int m) {
 extern "C" {
 
 // Shared memory one block needs at dimension d and support size m (bytes;
-// 0 for a d the kernel does not take); tile_eval_bf16_smem_bytes for the
-// bf16 variant.
+// 0 for a d the kernel does not take).
 long long tile_eval_smem_bytes(int d, int m) {
-  return smem_bytes_d<false>(d, m);
-}
-
-long long tile_eval_bf16_smem_bytes(int d, int m) {
-  return smem_bytes_d<true>(d, m);
+  if (d == 2) return (long long)smem_bytes<2>(m);
+  if (d == 3) return (long long)smem_bytes<3>(m);
+  return 0;
 }
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for a d other than 2 or 3. tile_eval_bf16_launch
-// takes the same arguments and runs the bf16 variant.
+// cudaErrorInvalidValue for a d other than 2 or 3.
 int tile_eval_launch(const int* tile_seg, const float* linv, const float* xt,
                      const float* alpha, const float* gradflag,
                      const float* valid, const float* qt, float* f_out,
                      float* g_out, float* vf_out, float* vg_out, int nt,
                      int n_seg, int d, int m, int t, float scale,
                      float val_const, float grad_const, void* stream) {
-  return launch_d<false>(tile_seg, linv, xt, alpha, gradflag, valid, qt,
-                         f_out, g_out, vf_out, vg_out, nt, n_seg, d, m, t,
-                         scale, val_const, grad_const, stream);
-}
-
-int tile_eval_bf16_launch(const int* tile_seg, const float* linv,
-                          const float* xt, const float* alpha,
-                          const float* gradflag, const float* valid,
-                          const float* qt, float* f_out, float* g_out,
-                          float* vf_out, float* vg_out, int nt, int n_seg,
-                          int d, int m, int t, float scale, float val_const,
-                          float grad_const, void* stream) {
-  return launch_d<true>(tile_seg, linv, xt, alpha, gradflag, valid, qt,
-                        f_out, g_out, vf_out, vg_out, nt, n_seg, d, m, t,
-                        scale, val_const, grad_const, stream);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (d == 2)
+    return launch<2>(tile_seg, linv, xt, alpha, gradflag, valid, qt, f_out,
+                     g_out, vf_out, vg_out, nt, n_seg, m, t, scale, val_const,
+                     grad_const, s);
+  if (d == 3)
+    return launch<3>(tile_seg, linv, xt, alpha, gradflag, valid, qt, f_out,
+                     g_out, vf_out, vg_out, nt, n_seg, m, t, scale, val_const,
+                     grad_const, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* tile_eval_error_string(int err) {

@@ -19,9 +19,11 @@ Reference quirks kept (see the JAX module's docstring):
 The probe sweep of newmeas_3d has three forms with the same results:
 the dense gather over every pixel, the compacted gather over the
 range-gated pixels (nv_cap), and the cell-blocked products
-(_blocked_obs_sweep). Not ported: the "fused" scan (reeval_scan_3d,
-which "hybrid" replaced) and the one-vector result packing for the TPU
-host link (pack_frame_results).
+(_blocked_obs_sweep). The strict per-cell re-evaluation order has two:
+the vectorized pass with mover fix-up rounds (reeval_hybrid_3d, the
+"hybrid" mode) and the per-cell scan (reeval_scan_3d, the "fused"
+mode). Not ported: the one-vector result packing for the TPU host link
+(pack_frame_results).
 """
 from __future__ import annotations
 
@@ -353,6 +355,68 @@ def reeval_hybrid_3d(obs: obsgp.ObsGP2DState, pos: torch.Tensor,
                          torch.where(moved, 3, torch.where(dbl, 1, 0)))
     return Reeval3D(action=action.to(torch.int32), pos=p, grad=g, noise=ps,
                     grad_noise=gs, dbl_pos_sig=ps, dbl_grad_sig=gs), drop
+
+
+def reeval_scan_3d(obs: obsgp.ObsGP2DState, pos: torch.Tensor,
+                   grad: torch.Tensor, pos_sig: torch.Tensor,
+                   grad_sig: torch.Tensor, valid: torch.Tensor,
+                   cell_coords: torch.Tensor, cell_ok: torch.Tensor,
+                   tr: torch.Tensor, rot: torch.Tensor, cell_size,
+                   mp: MapperParam, op: ObsGPParam, chunk: int = 4096,
+                   compat: bool = True, kc: int = 512):
+    """Strict per-cell re-evaluation as a scan over the kept cells in
+    processing order (the outer per-cell loop of reEvalPoints,
+    GPisMap3.cpp:321-569; gpismap_tpu/models/mapper3d.py:257-334, whose
+    lax.scan is a Python loop here, over the cells given: the JAX
+    package pads them to a static count, which a loop does not need).
+
+    Each step recomputes its cell's members from the CURRENT node
+    positions (floor(pos / cell_size) == the cell's integer coords), so a
+    node relocated by an earlier cell into a later kept cell is
+    re-evaluated there. The members are compacted to the first kc by a
+    stable sort (no host sync per step); members past kc are counted in
+    n_dropped. Same arguments and results as reeval_hybrid_3d: (Reeval3D
+    with the FINAL per-node composite actions and values, n_dropped).
+    """
+    k = pos.shape[0]
+    dev = pos.device
+    p, g, ps, gs = pos.clone(), grad.clone(), pos_sig.clone(), grad_sig.clone()
+    alv = valid.clone()
+    moved = torch.zeros(k, dtype=torch.bool, device=dev)
+    dbl = torch.zeros(k, dtype=torch.bool, device=dev)
+    drop = torch.zeros((), dtype=torch.int64, device=dev)
+    take = min(kc, k)
+    for c in range(cell_coords.shape[0]):
+        kcell = torch.floor(p / cell_size).to(torch.int32)
+        member = alv & cell_ok[c] & torch.all(kcell == cell_coords[c], -1)
+        drop += torch.clamp(torch.sum(member) - kc, min=0)
+        # the first kc members in ascending order, as jnp.nonzero(size=kc)
+        ic = torch.argsort((~member).to(torch.uint8), stable=True)[:take]
+        got = member[ic]
+        rv = reeval_3d(obs, p[ic], g[ic], ps[ic], gs[ic], got, tr, rot, mp,
+                       op, chunk, compat)
+        a, new_p, new_g, new_ps, new_gs = _apply_actions(
+            rv, got, p[ic], g[ic], ps[ic], gs[ic])
+        # rows that are not members write to a spare row past the end
+        at = torch.where(got, ic, k)
+
+        def scat(old, new):
+            ext = torch.cat([old, old.new_zeros((1,) + old.shape[1:])])
+            ext[at] = new
+            return ext[:-1]
+
+        p, g, ps, gs = scat(p, new_p), scat(g, new_g), scat(ps, new_ps), \
+            scat(gs, new_gs)
+        moved_c = moved[ic] | (a == 3)
+        dbl_c = dbl[ic] | (a == 1)
+        alv, moved, dbl = scat(alv, a != 2), scat(moved, moved_c), \
+            scat(dbl, dbl_c)
+    removed = valid & ~alv
+    action = torch.where(removed, 2,
+                         torch.where(moved, 3, torch.where(dbl, 1, 0)))
+    return Reeval3D(action=action.to(torch.int32), pos=p, grad=g, noise=ps,
+                    grad_noise=gs, dbl_pos_sig=ps, dbl_grad_sig=gs), \
+        int(drop)
 
 
 class NewMeas3D(NamedTuple):

@@ -30,10 +30,13 @@ bf16=True is the Pallas kernel's bf16 variant (tile_eval_pallas(bf16=),
 the JAX package's GPISMAP_PALLAS_BF16 query path): the variance product
 V = L^-1 K* takes bfloat16 multiplicands, rounded to nearest even, with
 f32 accumulation; K*, the mean (f, g) and colsum(V^2) stay f32, so f and
-g are bitwise those of bf16=False. On CUDA tensors it launches the
-kernel's bf16 instance (csrc/tile_eval.cu, counted in `launches_bf16`,
-not in `launches`). It is forward-only, as the Pallas kernel is (no
-VJP): a call that would record a gradient raises NotImplementedError.
+g are bitwise those of bf16=False. On CUDA tensors it launches the bf16
+kernel (csrc/tile_eval_bf16.cu, a library of its own, counted in
+`launches_bf16`, not in `launches`), which runs the product over each
+slot's kept 16-row stages only (kept_stages; tile_eval_packed_reference
+is that packing in plain PyTorch). It is forward-only, as the Pallas
+kernel is (no VJP): a call that would record a gradient raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -49,8 +52,12 @@ from .. import _native
 from . import kernels
 
 _SRC = os.path.join(_native.PKG_DIR, "csrc", "tile_eval.cu")
+_SRC_BF16 = os.path.join(_native.PKG_DIR, "csrc", "tile_eval_bf16.cu")
+# the K* code both kernels include
+_DEPS = (os.path.join(_native.PKG_DIR, "csrc", "tile_kstar.cuh"),)
 _LOCK = threading.Lock()
 _LIB: Optional[ct.CDLL] = None
+_LIB_BF16: Optional[ct.CDLL] = None
 # launches of the CUDA kernel by tile_eval (not of the plain version):
 # the f32 instance, and the bf16 variant's apart
 launches = 0
@@ -58,30 +65,86 @@ launches_bf16 = 0
 
 
 def build_library() -> str:
-    """Compile the kernel library if it is missing or stale; returns the
-    compiler's output (ptxas register/shared-memory report; "" when up to
-    date)."""
-    return _native.build(_SRC, "libtile_eval.so", _native.NVCC)[1]
+    """Compile the f32 kernel's library if it is missing or stale; returns
+    the compiler's output (ptxas register/shared-memory report; "" when
+    up to date)."""
+    return _native.build(_SRC, "libtile_eval.so", _native.NVCC, _DEPS)[1]
+
+
+def build_library_bf16() -> str:
+    """build_library for the bf16 kernel's library."""
+    return _native.build(_SRC_BF16, "libtile_eval_bf16.so", _native.NVCC,
+                         _DEPS)[1]
+
+
+def bind(path: str, bf16: bool) -> ct.CDLL:
+    """Load a built kernel library and declare its C entry points (the
+    f32 kernel's, or with bf16 the bf16 kernel's)."""
+    lib = ct.CDLL(path)
+    if bf16:
+        lib.tile_eval_bf16_launch.restype = ct.c_int
+        lib.tile_eval_bf16_launch.argtypes = (
+            [ct.c_void_p] * 13 + [ct.c_int] * 6 + [ct.c_float] * 3
+            + [ct.c_void_p])
+        lib.tile_eval_bf16_smem_bytes.restype = ct.c_longlong
+        lib.tile_eval_bf16_smem_bytes.argtypes = [ct.c_int] * 3
+        lib.tile_eval_bf16_error_string.restype = ct.c_char_p
+        lib.tile_eval_bf16_error_string.argtypes = [ct.c_int]
+    else:
+        lib.tile_eval_launch.restype = ct.c_int
+        lib.tile_eval_launch.argtypes = (
+            [ct.c_void_p] * 11 + [ct.c_int] * 5 + [ct.c_float] * 3
+            + [ct.c_void_p])
+        lib.tile_eval_smem_bytes.restype = ct.c_longlong
+        lib.tile_eval_smem_bytes.argtypes = [ct.c_int, ct.c_int]
+        lib.tile_eval_error_string.restype = ct.c_char_p
+        lib.tile_eval_error_string.argtypes = [ct.c_int]
+    return lib
 
 
 def _lib() -> ct.CDLL:
     global _LIB
     with _LOCK:
         if _LIB is None:
-            path, _ = _native.build(_SRC, "libtile_eval.so", _native.NVCC)
-            lib = ct.CDLL(path)
-            for fn in (lib.tile_eval_launch, lib.tile_eval_bf16_launch):
-                fn.restype = ct.c_int
-                fn.argtypes = ([ct.c_void_p] * 11 + [ct.c_int] * 5
-                               + [ct.c_float] * 3 + [ct.c_void_p])
-            for fn in (lib.tile_eval_smem_bytes,
-                       lib.tile_eval_bf16_smem_bytes):
-                fn.restype = ct.c_longlong
-                fn.argtypes = [ct.c_int, ct.c_int]
-            lib.tile_eval_error_string.restype = ct.c_char_p
-            lib.tile_eval_error_string.argtypes = [ct.c_int]
-            _LIB = lib
+            _LIB = bind(_native.build(_SRC, "libtile_eval.so", _native.NVCC,
+                                      _DEPS)[0], bf16=False)
         return _LIB
+
+
+def _lib_bf16() -> ct.CDLL:
+    global _LIB_BF16
+    with _LOCK:
+        if _LIB_BF16 is None:
+            _LIB_BF16 = bind(_native.build(
+                _SRC_BF16, "libtile_eval_bf16.so", _native.NVCC, _DEPS)[0],
+                bf16=True)
+        return _LIB_BF16
+
+
+def _kstar_and_mean(tile_seg, xt, alpha, gradflag, valid, qt, scale):
+    """(active tiles, their cells, K* [A, MP, T(1+d)], alpha^T K*
+    [A, T(1+d)]) of the plain version."""
+    act = torch.nonzero(tile_seg >= 0).reshape(-1)
+    seg = tile_seg[act].long()
+    ks = kernels.matern32_deriv_cross_cov(
+        xt[seg].transpose(-1, -2), gradflag[seg] > 0.5, valid[seg] > 0.5,
+        qt[act].transpose(-1, -2), scale)            # [A, MP, T(1+d)]
+    return act, seg, ks, torch.einsum('amc,am->ac', ks, alpha[seg])
+
+
+def _outputs(qt, d, act, res, vs, val_const, grad_const):
+    """(f, g, vf, vg) of all tiles from the active tiles' means `res` and
+    sums of squares `vs` [A, T(1+d)]; inactive tiles give 0."""
+    nt, _, t = qt.shape
+    f = qt.new_zeros((nt, t))
+    g = qt.new_zeros((nt, d, t))
+    vf = qt.new_zeros((nt, t))
+    vg = qt.new_zeros((nt, d, t))
+    f[act] = res[:, :t]
+    g[act] = res[:, t:].reshape(-1, d, t)
+    vf[act] = val_const - vs[:, :t]
+    vg[act] = grad_const - vs[:, t:].reshape(-1, d, t)
+    return f, g, vf, vg
 
 
 def tile_eval_reference(tile_seg: torch.Tensor, linv: torch.Tensor,
@@ -94,28 +157,72 @@ def tile_eval_reference(tile_seg: torch.Tensor, linv: torch.Tensor,
     bf16: both multiplicands of the variance product rounded to bfloat16
     (nearest even), then multiplied in f32, as the Pallas kernel's bf16
     branch does (a product of two bf16 values is exact in f32)."""
-    nt, _, t = qt.shape
-    act = torch.nonzero(tile_seg >= 0).reshape(-1)
-    seg = tile_seg[act].long()
-    ks = kernels.matern32_deriv_cross_cov(
-        xt[seg].transpose(-1, -2), gradflag[seg] > 0.5, valid[seg] > 0.5,
-        qt[act].transpose(-1, -2), scale)            # [A, MP, T(1+d)]
-    res = torch.einsum('amc,am->ac', ks, alpha[seg])
+    act, seg, ks, res = _kstar_and_mean(tile_seg, xt, alpha, gradflag,
+                                        valid, qt, scale)
     if bf16:
         v = torch.matmul(linv[seg].to(torch.bfloat16).float(),
                          ks.to(torch.bfloat16).float())
     else:
         v = torch.matmul(linv[seg], ks)
-    vs = torch.sum(v * v, dim=-2)
-    f = qt.new_zeros((nt, t))
-    g = qt.new_zeros((nt, d, t))
-    vf = qt.new_zeros((nt, t))
-    vg = qt.new_zeros((nt, d, t))
-    f[act] = res[:, :t]
-    g[act] = res[:, t:].reshape(-1, d, t)
-    vf[act] = val_const - vs[:, :t]
-    vg[act] = grad_const - vs[:, t:].reshape(-1, d, t)
-    return f, g, vf, vg
+    return _outputs(qt, d, act, res, torch.sum(v * v, dim=-2), val_const,
+                    grad_const)
+
+
+def kept_stages(valid: torch.Tensor, gradflag: torch.Tensor, d: int):
+    """The 16-row stages of K* (and of L^-1's rows and columns) that the
+    bf16 kernel computes: (stages [S, NS] int32, count [S] int32), NS =
+    ceil(MP / 16), MP = M (1 + d). Row r of MP is kept if it is an f row
+    (r < M) of a valid node, or a gradient row of a node whose
+    gradflag * valid is set; a stage is kept if any of its rows is. Each
+    slot's kept stages come first in stages[s], ascending; the rest is
+    -1. A stage with no kept row adds nothing: its K* rows are zero, and
+    its rows and columns of L^-1 are the identity's. Torch code on the
+    tensors' device, without a host sync."""
+    s, m = valid.shape
+    mp = m * (1 + d)
+    ns = -(-mp // 16)
+    vm = valid > 0.5
+    gm = vm & (gradflag > 0.5)
+    rows = torch.cat([vm] + [gm] * d, dim=1)           # [S, MP]
+    rows = torch.nn.functional.pad(rows, (0, 16 * ns - mp))
+    keep = rows.reshape(s, ns, 16).any(dim=-1)         # [S, NS]
+    count = keep.sum(dim=-1, dtype=torch.int32)
+    order = torch.argsort((~keep).to(torch.uint8), dim=-1, stable=True)
+    idx = torch.arange(ns, device=valid.device)
+    stages = torch.where(idx < count[:, None], order, -1)
+    return stages.to(torch.int32), count
+
+
+def tile_eval_packed_reference(tile_seg: torch.Tensor, linv: torch.Tensor,
+                               xt: torch.Tensor, alpha: torch.Tensor,
+                               gradflag: torch.Tensor, valid: torch.Tensor,
+                               qt: torch.Tensor, d: int, scale, val_const,
+                               grad_const):
+    """The bf16 evaluation as the bf16 kernel packs it: the variance
+    product runs over the kept stages only (kept_stages), on the rows and
+    columns of L^-1 and the rows of K* that they hold, with rows past MP
+    zero; f and g as the plain version computes them. It gives
+    tile_eval_reference(bf16=True)'s outputs up to the order of the f32
+    sums: the rows and columns it leaves out add exact zeros."""
+    act, seg, ks, res = _kstar_and_mean(tile_seg, xt, alpha, gradflag,
+                                        valid, qt, scale)
+    stages, count = kept_stages(valid, gradflag, d)
+    mp, ns = linv.shape[-1], stages.shape[-1]
+    rows = (16 * stages.clamp(min=0).long()[:, :, None]
+            + torch.arange(16, device=linv.device))      # [S, NS, 16]
+    keep = ((torch.arange(ns, device=linv.device) < count[:, None])[:, :, None]
+            & (rows < mp)).reshape(linv.shape[0], -1)
+    rows = torch.where(keep, rows.reshape(keep.shape), 0)
+    cell = torch.arange(linv.shape[0], device=linv.device)[:, None, None]
+    lp = torch.where(keep[:, :, None] & keep[:, None, :],
+                     linv[cell, rows[:, :, None], rows[:, None, :]], 0.0)
+    kp = torch.where(keep[seg][:, :, None],
+                     torch.gather(ks, 1, rows[seg][:, :, None].expand(
+                         -1, -1, ks.shape[-1])), 0.0)
+    v = torch.matmul(lp[seg].to(torch.bfloat16).float(),
+                     kp.to(torch.bfloat16).float())
+    return _outputs(qt, d, act, res, torch.sum(v * v, dim=-2), val_const,
+                    grad_const)
 
 
 # per-tile copies of L^-1 that one chunk of tile_eval_backward's
@@ -270,26 +377,39 @@ def _launch(tile_seg, linv, xt, alpha, gradflag, valid, qt, d: int,
             raise ValueError(f"tile_eval: {name} is not contiguous")
     if mp != m * (1 + d):
         raise ValueError(f"tile_eval: MP={mp} != M(1+d)={m * (1 + d)}")
-    lib = _lib()
-    run, smem = ((lib.tile_eval_bf16_launch, lib.tile_eval_bf16_smem_bytes)
-                 if bf16 else (lib.tile_eval_launch, lib.tile_eval_smem_bytes))
     f = torch.empty((nt, t), dtype=torch.float32, device=dev)
     g = torch.empty((nt, d, t), dtype=torch.float32, device=dev)
     vf = torch.empty((nt, t), dtype=torch.float32, device=dev)
     vg = torch.empty((nt, d, t), dtype=torch.float32, device=dev)
     if nt == 0 or t == 0:
         return f, g, vf, vg
+    outs = (f.data_ptr(), g.data_ptr(), vf.data_ptr(), vg.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = run(
-            *(x.data_ptr() for x in args),
-            f.data_ptr(), g.data_ptr(), vf.data_ptr(), vg.data_ptr(),
-            nt, s, d, m, t, scale, val_const, grad_const, stream)
+        if bf16:
+            lib = _lib_bf16()
+            stages, count = kept_stages(valid, gradflag, d)
+            # the shared memory holds the largest kept cell's K*: one
+            # scalar read back
+            nk_cap = int(count.max()) if s else 0
+            rc = lib.tile_eval_bf16_launch(
+                *(x.data_ptr() for x in args), stages.data_ptr(),
+                count.data_ptr(), *outs, nt, s, d, m, t, nk_cap, scale,
+                val_const, grad_const, stream)
+            err = lib.tile_eval_bf16_error_string
+            need = lib.tile_eval_bf16_smem_bytes(d, m, nk_cap)
+        else:
+            lib = _lib()
+            rc = lib.tile_eval_launch(
+                *(x.data_ptr() for x in args), *outs, nt, s, d, m, t, scale,
+                val_const, grad_const, stream)
+            err = lib.tile_eval_error_string
+            need = lib.tile_eval_smem_bytes(d, m)
     if rc != 0:
         raise RuntimeError(
             f"tile_eval{' bf16' if bf16 else ''} kernel launch failed: CUDA "
-            f"error {rc} ({lib.tile_eval_error_string(rc).decode()}); a block "
-            f"needs {smem(d, m)} B of shared memory at d={d}, M={m}")
+            f"error {rc} ({err(rc).decode()}); a block needs {need} B of "
+            f"shared memory at d={d}, M={m}")
     if bf16:
         launches_bf16 += 1
     else:

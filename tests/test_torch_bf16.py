@@ -314,7 +314,7 @@ def test_cuda_bf16_kernel_is_deterministic_and_batch_independent(d, m, t):
 
 
 class _FailingLaunch:
-    """The kernel library with its bf16 launch refused (CUDA error 2)."""
+    """The bf16 kernel's library with its launch refused (CUDA error 2)."""
 
     def __init__(self, lib):
         self._lib = lib
@@ -332,8 +332,8 @@ def test_cuda_bf16_launch_failure_raises(monkeypatch):
     """A refused bf16 launch raises, names the variant and its shared
     memory, and counts nothing: no fallback to the f32 kernel."""
     args = _cuda_args(5, 16, 8, 6, 2)
-    lib = _FailingLaunch(tile_ops._lib())
-    monkeypatch.setattr(tile_ops, "_lib", lambda: lib)
+    lib = _FailingLaunch(tile_ops._lib_bf16())
+    monkeypatch.setattr(tile_ops, "_lib_bf16", lambda: lib)
     before = (tile_ops.launches, tile_ops.launches_bf16)
     with pytest.raises(RuntimeError, match="bf16 kernel launch failed"):
         tile_ops.tile_eval(*args, **_kw(2), bf16=True)

@@ -232,6 +232,35 @@ def test_reeval_hybrid_3d_matches_jax(scene, max_movers, rounds):
     assert differs.any()
 
 
+@pytest.mark.parametrize("kc", [512, 8])
+def test_reeval_scan_3d_matches_jax(scene, kc):
+    """The per-cell scan ("fused") on the same cell order with forward
+    movers: the final composite actions, values and the dropped count
+    equal JAX's, with kc = 512 (no cell overflows) and kc = 8 (the larger
+    cells do: the members past kc are dropped and counted)."""
+    (_, oj, _), (_, ot, _), (tr, rot) = scene["both"]
+    coords = _forward_mover_order(scene)
+    cpad = 1 << max(3, (len(coords) - 1).bit_length())
+    cc = np.zeros((cpad, 3), np.int32)
+    cc[:len(coords)] = coords
+    cok = np.arange(cpad) < len(coords)
+    nj, nt = _nodes_j_t(scene["nodes"])
+    rj, dj = jm.reeval_scan_3d(
+        oj, *nj, jnp.asarray(cc), jnp.asarray(cok), jnp.asarray(tr),
+        jnp.asarray(rot), jnp.float32(scene["cell_size"]), jcfg.MAPPER_3D,
+        jcfg.OBSGP_2D, compat=True, kc=kc)
+    rt, dt = tm.reeval_scan_3d(
+        ot, *nt, torch.as_tensor(cc), torch.as_tensor(cok),
+        torch.as_tensor(tr), torch.as_tensor(rot),
+        np.float32(scene["cell_size"]), tcfg.MAPPER_3D, tcfg.OBSGP_2D,
+        compat=True, kc=kc)
+    valid = scene["nodes"]["valid"]
+    act = _check_reeval(rj, rt, valid, f"scan kc={kc}")
+    assert dt == int(dj)
+    assert (dt > 0) == (kc == 8)
+    assert (act == 3).sum() >= 10, np.bincount(act)
+
+
 def test_newmeas_3d_matches_jax(scene):
     (_, _, nj), (_, _, nt), _ = scene["both"]
     ok = np.asarray(nj.insert_ok)

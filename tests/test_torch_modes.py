@@ -1,13 +1,15 @@
 """The non-default re-evaluation modes: the PyTorch port vs the JAX package
 in the same mode, over the tiny frames of tests/test_torch_slice.py (2D,
-strict_reeval=True) and tests/test_torch_slice3d.py (3D, "strict" and
-"snapshot"), on the CPU, at those files' tolerances. The maps come from
-tests/torch_maps.py, built once per process.
+strict_reeval=True) and tests/test_torch_slice3d.py (3D, "strict",
+"fused" and "snapshot"), on the CPU, at those files' tolerances. The maps
+come from tests/torch_maps.py, built once per process.
 
 2D strict re-evaluates the in-view cells one by one, each cell's nodes
 gathered after the earlier cells' mutations; 3D "strict" does the same
-for the kept cells, and "snapshot" re-evaluates every kept cell's nodes
-in one batch of the frame's start state.
+for the kept cells, "fused" scans the kept cells in that order in one
+device loop (applied on the host at the end of the frame), and
+"snapshot" re-evaluates every kept cell's nodes in one batch of the
+frame's start state.
 """
 import numpy as np
 import pytest
@@ -65,7 +67,7 @@ def test_strict_2d_update_batch_matches_update():
     np.testing.assert_array_equal(a.test(q), b.test(q))
 
 
-@pytest.mark.parametrize("mode", ["strict", "snapshot"])
+@pytest.mark.parametrize("mode", ["strict", "fused", "snapshot"])
 def test_mode_3d_matches_jax(frames_3d, mode):
     """GPisMap3D(reeval_mode=mode) after 3 frames: the same node set,
     noises and normals, and the same field, as the JAX package's mapper
@@ -98,8 +100,8 @@ def test_strict_3d_update_batch_matches_update(frames_3d):
 
 @pytest.mark.parametrize("mode", ["strict", "snapshot"])
 def test_other_reeval_modes_are_not_ported(frames_3d, mode):
-    """Of the JAX package's other modes only "fused" is left out
-    (tests/test_torch_slice3d.py checks that it raises). "strict", the
+    """Every mode of the JAX package is ported ("fused" is checked
+    against the hybrid map in tests/test_torch_slice3d.py). "strict", the
     host replay of the per-cell order, gives the hybrid map (the order
     hybrid computes in one pass); "snapshot" maps the scene too. Moved
     here from tests/test_torch_slice3d.py so that the strict replay runs
@@ -120,7 +122,8 @@ def test_other_reeval_modes_are_not_ported(frames_3d, mode):
 
 @pytest.mark.parametrize("strict,mode,want", [
     (True, None, "hybrid"), (False, None, "snapshot"),
-    (False, "strict", "strict"), (True, "snapshot", "snapshot")])
+    (False, "strict", "strict"), (True, "snapshot", "snapshot"),
+    (False, "fused", "fused")])
 def test_mode_resolution_matches_jax(strict, mode, want):
     """reeval_mode None follows strict_reeval; an explicit mode wins."""
     mj = JaxMapper3D(cap=JaxCapacity(**TINY_3D), strict_reeval=strict,
@@ -132,9 +135,14 @@ def test_mode_resolution_matches_jax(strict, mode, want):
 
 
 def test_unknown_and_fused_modes_raise():
+    """An unknown mode raises in both packages; "fused" is accepted by
+    both (it raised in the port before the scan was ported)."""
     with pytest.raises(ValueError, match="unknown reeval_mode"):
         JaxMapper3D(cap=JaxCapacity(**TINY_3D), reeval_mode="batched")
     with pytest.raises(ValueError, match="unknown reeval_mode"):
         GPisMap3D(reeval_mode="batched", device="cpu")
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        GPisMap3D(reeval_mode="fused", device="cpu")
+    mj = JaxMapper3D(cap=JaxCapacity(**TINY_3D), reeval_mode="fused")
+    mt = GPisMap3D(cap=CapacityParam(**TINY_3D), reeval_mode="fused",
+                   device="cpu")
+    assert mt.reeval_mode == mj.reeval_mode == "fused"
+    assert mt.strict_reeval and mj.strict_reeval

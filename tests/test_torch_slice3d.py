@@ -252,9 +252,19 @@ def test_set_camera_tables():
 
 @pytest.mark.parametrize("mode", ["fused"])
 def test_other_reeval_modes_are_not_ported(mode):
-    """Of the JAX package's other modes only "fused" is left out: "hybrid"
-    replaced it and raises in its place. The "strict" and "snapshot"
-    cases of this test run in tests/test_torch_modes.py, beside that
-    file's own run of the strict replay."""
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        GPisMap3D(reeval_mode=mode, device="cpu")
+    """"fused", the per-cell scan, gives the hybrid map after 3 frames:
+    the same live nodes and, at this file's tolerances, the same field
+    (the JAX package calls the two observably equal). It raised before
+    the scan was ported; its match with the JAX package's fused mapper is
+    tests/test_torch_modes.py::test_mode_3d_matches_jax. The "strict"
+    and "snapshot" cases of this test run in tests/test_torch_modes.py,
+    beside that file's own run of the strict replay."""
+    import torch_maps
+    hybrid = torch_maps.built(3, 3)
+    m = torch_maps.built(3, 3, mode=mode)
+    assert m.reeval_mode == mode and m.num_nodes > 100
+    assert m.stats.get("reeval_dropped", 0) == 0
+    np.testing.assert_array_equal(m.index.dump_nodes()["alive"],
+                                  hybrid.index.dump_nodes()["alive"])
+    q = _queries()
+    _check_field(m.test(q), hybrid.test(q))

@@ -31,9 +31,10 @@ the other way moves by one bf16 step, at most 2^-7 of its magnitude.
 """
 import math
 
+import numpy as np
 import torch
 
-from gpismap_tpu_torch.ops import kernels
+from gpismap_tpu_torch.ops import gp, kernels
 
 # unit roundoff of f32
 U32 = 2.0 ** -24
@@ -156,3 +157,40 @@ def shares(out, ref, lims):
     Read them on the active tiles only."""
     return tuple((a.double() - b.double()).abs() / lim.clamp(min=1e-300)
                  for a, b, lim in zip(out[2:], ref[2:], lims[:2]))
+
+
+def masked_plan(rng, d: int, m: int, t: int, nt: int, cells, scale,
+                device="cpu"):
+    """Tile arguments (tile_seg, linv, xt, alpha, gradflag, valid, qt) of
+    one cluster cell per entry (n, grad_share) of cells, laid out as the
+    mapper lays them out: n valid nodes in the slot's first rows
+    (models/cluster.py gathers the support into a prefix), a random
+    grad_share of them with gradient rows (the others get gradient noise
+    0.2, past ongpis_prepare's 0.1001); their train covariance factored
+    on `device` into L^-1. nt tiles of t random queries over random
+    cells, the last tile inactive. Nodes and queries lie in [-1, 1]^d."""
+    s = len(cells)
+    x = rng.uniform(-1, 1, (s, m, d)).astype(np.float32)
+    grad = rng.normal(size=(s, m, d)).astype(np.float32)
+    grad /= np.linalg.norm(grad, axis=-1, keepdims=True)
+    valid = np.zeros((s, m), bool)
+    siggrad = np.full((s, m), 0.05, np.float32)
+    for c, (n, share) in enumerate(cells):
+        valid[c, :n] = True
+        siggrad[c, :n][rng.uniform(size=n) >= share] = 0.2
+    tv = torch.as_tensor(valid, device=device)
+    tx = torch.as_tensor(x, device=device)
+    gf, sx = gp.ongpis_prepare(torch.as_tensor(grad, device=device),
+                               torch.full((s, m), 0.05, device=device),
+                               torch.as_tensor(siggrad, device=device), tv)
+    k = kernels.matern32_deriv_train_cov(
+        tx, sx, torch.as_tensor(siggrad, device=device), gf, tv, scale)
+    linv = gp.linv_from_chol(torch.linalg.cholesky(k).contiguous())
+    segs = rng.integers(0, s, nt).astype(np.int32)
+    segs[-1] = -1
+    q = rng.uniform(-1, 1, (nt, d, t)).astype(np.float32)
+    alpha = rng.normal(size=(s, m * (1 + d))).astype(np.float32)
+    return (torch.as_tensor(segs, device=device), linv,
+            tx.transpose(-1, -2).contiguous(),
+            torch.as_tensor(alpha, device=device), gf.float(), tv.float(),
+            torch.as_tensor(q, device=device))

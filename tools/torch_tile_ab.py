@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""A/B timing of variants of the tile-evaluation kernel on one GPU.
+"""A/B timing of variants of the tile-evaluation kernels on one GPU.
 
-Builds gpismap_tpu_torch/csrc/tile_eval.cu as it is and variants of it,
-each into a library of its own under gpismap_tpu_torch/build/, and times
-each in one process on the tile plans of chip_smoke.py's phase 3 (2D: 10
-synthetic floor frames, the 49,551-point grid) and phase 6 (3D: 12
-synthetic depth frames, the 15,225-point volume), the source as it is
-timed first and last:
+Builds gpismap_tpu_torch/csrc/tile_eval.cu (with --bf16: tile_eval_bf16.cu)
+as it is and variants of it, each into a library of its own under
+gpismap_tpu_torch/build/, and times each in one process on the tile plans
+of chip_smoke.py's phase 3 (2D: 10 synthetic floor frames, the
+49,551-point grid) and phase 6 (3D: 12 synthetic depth frames, the
+15,225-point volume), the source as it is timed first and last. The f32
+kernel's variants:
 
   kconst    every K* entry is a constant: the kernel without the cost of
             computing K* (its outputs are wrong; the time is the reading)
@@ -14,12 +15,27 @@ timed first and last:
   FILE      any other tile_eval.cu with the same C interface, given on the
             command line (for example an earlier commit's)
 
+The bf16 kernel's (--bf16), two readings of where its time goes and
+earlier sources:
+
+  kconst    every K* entry a constant (outputs wrong; the time is the
+            reading without the cost of computing K*)
+  noproduct no product issued: the L^-1 ring and K* without it (outputs
+            wrong)
+  FILE      an earlier tile_eval.cu whose bf16 instance has the entry
+            tile_eval_bf16_launch without the kept-stage arguments (for
+            example commit 25d0d1c's), or another tile_eval_bf16.cu (for
+            example an earlier commit's design)
+
 Prints the card, each build's ptxas register and spill lines, and per
 dimension and variant the CUDA-event mean time and the largest output
 error against the plain version (relative to each output's largest
-magnitude, at least 1).
+magnitude, at least 1; with --bf16 against the bf16 plain version, whose
+variances a bf16 kernel meets only within torch_bf16_checks' limits).
+Every time is of one tile_eval call (with --bf16 its kept_stages and the
+one read back of their largest count included).
 
-Usage: python3 tools/torch_tile_ab.py [FILE ...]    (needs CUDA)
+Usage: python3 tools/torch_tile_ab.py [--bf16] [FILE ...]    (needs CUDA)
 """
 import ctypes as ct
 import os
@@ -32,11 +48,28 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the K* entry of the kernel's stage loop, and what kconst puts there
 KSTAR_CALL = "kstar<D>(rb, k, cblk, q, xsm, vms, gms, m, a, a2)"
 KCONST = "(1e-3f * (float)(k + 1))"
+# the bf16 kernel's K* calls (ONE_AR 1 and 2) and its k-step
+KSTAR_BF16 = "kstar<D, {}>(rb, k, cblk, q, xsm, vms, gms, m, a, a2)"
+PRODUCT_CALL = "mma_step<BN>(acc, af, kb, lane);"
 
 
-def variants(extra):
+def variants(extra, bf16: bool):
     """[(label, source text, extra nvcc flags)]."""
     from gpismap_tpu_torch.ops import tile_eval as tile_ops
+    if bf16:
+        src = open(tile_ops._SRC_BF16).read()
+        calls = [c for c in (KSTAR_BF16.format(1), KSTAR_BF16.format(2))
+                 if src.count(c) == 1]
+        if len(calls) != 2 or src.count(PRODUCT_CALL) != 1:
+            raise RuntimeError("tile_eval_bf16.cu: the K* calls or the "
+                               "k-step to replace are not found once")
+        kconst = src
+        for c in calls:
+            kconst = kconst.replace(c, KCONST)
+        return ([("kconst", kconst, []),
+                 ("noproduct", src.replace(PRODUCT_CALL, ";"), [])]
+                + [(os.path.relpath(os.path.abspath(p), ROOT),
+                    open(p).read(), []) for p in extra])
     src = open(tile_ops._SRC).read()
     if src.count(KSTAR_CALL) != 1:
         raise RuntimeError(f"tile_eval.cu has {src.count(KSTAR_CALL)} "
@@ -56,24 +89,48 @@ def build(label, text, flags, i):
     src = os.path.join(_native.BUILD_DIR, f"tile_eval_ab{i}.cu")
     with open(src, "w") as f:
         f.write(text)
-    path, log = _native.build(src, f"libtile_eval_ab{i}.so",
-                              _native.NVCC + flags)
+    path, log = _native.build(
+        src, f"libtile_eval_ab{i}.so",
+        _native.NVCC + ["-I", os.path.join(_native.PKG_DIR, "csrc")] + flags)
     lines = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
     return label, path, lines
 
 
-def load(path):
+class LegacyBf16:
+    """An earlier library's bf16 instance (tile_eval_bf16_launch with the
+    f32 kernel's arguments, no kept stages) behind the bf16 library's C
+    interface, so that tile_eval(bf16=True) launches it."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def tile_eval_bf16_launch(self, *args):
+        # drop stages, counts (after the 7 inputs) and nk_cap (after t)
+        return self.lib.tile_eval_bf16_launch(*args[:7], *args[9:18],
+                                              *args[19:])
+
+    def tile_eval_bf16_smem_bytes(self, d, m, nk_cap):
+        return self.lib.tile_eval_bf16_smem_bytes(d, m)
+
+    def tile_eval_bf16_error_string(self, err):
+        return self.lib.tile_eval_error_string(err)
+
+
+def load(path, bf16: bool):
+    from gpismap_tpu_torch.ops import tile_eval as tile_ops
     lib = ct.CDLL(path)
-    lib.tile_eval_launch.restype = ct.c_int
-    lib.tile_eval_launch.argtypes = (
+    if not bf16 or hasattr(lib, "tile_eval_bf16_error_string"):
+        return tile_ops.bind(path, bf16)
+    lib.tile_eval_bf16_launch.restype = ct.c_int
+    lib.tile_eval_bf16_launch.argtypes = (
         [ct.c_void_p] * 11 + [ct.c_int] * 5 + [ct.c_float] * 3
         + [ct.c_void_p])
-    lib.tile_eval_smem_bytes.restype = ct.c_longlong
-    lib.tile_eval_smem_bytes.argtypes = [ct.c_int, ct.c_int]
+    lib.tile_eval_bf16_smem_bytes.restype = ct.c_longlong
+    lib.tile_eval_bf16_smem_bytes.argtypes = [ct.c_int, ct.c_int]
     lib.tile_eval_error_string.restype = ct.c_char_p
     lib.tile_eval_error_string.argtypes = [ct.c_int]
-    return lib
+    return LegacyBf16(lib)
 
 
 def plans(chip_smoke, torch_scenes, tile_ops):
@@ -110,9 +167,12 @@ def main() -> int:
 
     print(f"card: {chip_smoke.card_line()}; torch {torch.__version__}",
           flush=True)
-    todo = variants(sys.argv[1:])
+    bf16 = "--bf16" in sys.argv[1:]
+    todo = variants([a for a in sys.argv[1:] if a != "--bf16"], bf16)
+    attr = "_LIB_BF16" if bf16 else "_LIB"
     with ThreadPoolExecutor(len(todo) + 1) as ex:
-        own = ex.submit(tile_ops.build_library)
+        own = ex.submit(tile_ops.build_library_bf16 if bf16
+                        else tile_ops.build_library)
         built = [ex.submit(build, label, text, flags, i)
                  for i, (label, text, flags) in enumerate(todo)]
         print("as it is: " + " | ".join(
@@ -121,22 +181,23 @@ def main() -> int:
         built = [f.result() for f in built]
     for label, _, lines in built:
         print(f"{label}: " + " | ".join(lines))
-    libs = ([("as it is", tile_ops._lib())]
-            + [(label, load(path)) for label, path, _ in built]
-            + [("as it is", tile_ops._lib())])
-    own_lib = tile_ops._lib()
+    own_lib = tile_ops._lib_bf16() if bf16 else tile_ops._lib()
+    libs = ([("as it is", own_lib)]
+            + [(label, load(path, bf16)) for label, path, _ in built]
+            + [("as it is", own_lib)])
     for d, (args, kwargs) in plans(chip_smoke, torch_scenes,
                                    tile_ops).items():
         reps = 20 if d == 2 else 10
+        kw = dict(kwargs, bf16=bf16)
         for label, lib in libs:
-            tile_ops._LIB = lib
-            _, rel = chip_smoke.compare_kernel(tile_ops, (args, kwargs))
-            ms = chip_smoke.cuda_ms(
-                lambda: tile_ops.tile_eval(*args, **kwargs), reps)
+            setattr(tile_ops, attr, lib)
+            _, rel = chip_smoke.compare_kernel(tile_ops, (args, kw))
+            ms = chip_smoke.cuda_ms(lambda: tile_ops.tile_eval(*args, **kw),
+                                    reps)
             print(f"d={d} {label}: {ms:.3f} ms, max relative err vs plain "
                   + " ".join(f"{k}={v:.3g}" for k, v in rel.items()),
                   flush=True)
-        tile_ops._LIB = own_lib
+        setattr(tile_ops, attr, own_lib)
     return 0
 
 
