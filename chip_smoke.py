@@ -29,9 +29,15 @@ production shapes:
   (76,800 rays) against the scene's noise-free ray lengths; each followed
   by the hit rays' implicit correction with their cells factored anew and
   its backward to alpha and scale (the tile, chol and linv kernels'
-  autograd Functions). Then each Function's gradient against autograd
-  through its plain version (chol/linv at B=64, n=384 and 1280; the tile
-  kernel on phases 7's and 4's tile plans), the correction on 256 hit rays
+  autograd Functions; the tile backward's own kernels,
+  csrc/tile_eval_backward.cu, counted). Then each Function's gradient
+  against autograd through its plain version (chol/linv at B=64, n=384
+  and 1280; the tile kernel on phases 7's and 4's tile plans, where the
+  backward kernels are also held to their twin tile_eval_vjp_reference,
+  bitwise in two runs, timed against the autograd recompute
+  tile_eval_backward and plain autograd, and run without a cotangent of
+  the variances, where the Z and dL kernels must not launch), the
+  correction on 256 hit rays
   against the CPU port on the same map, moved across with
   runtime.checkpoint; the 3D map saved and loaded into a fresh
   GPisMap3D(); and the mex front end (mex_compat) on the card.
@@ -222,6 +228,12 @@ PEAK_BF16_FLOPS = 989e12
 # (2 each)
 PAIR_FLOPS = {d: 3 * d + 6 for d in (2, 3)}
 ENTRY_FLOPS = 6
+# fp32 operations of the tile backward per unmasked K* entry beside its
+# products (tile_bwd_work), a lower count of what its formulas need: dK*
+# = alpha gF - 2 Y (a product and a multiply-add), the multiply-adds of
+# the chain into dx, dq (D each), d a and d alpha (2 flops each), and one
+# product per derivative (D + 1)
+BWD_ENTRY_FLOPS = {d: 3 + 2 * (2 * d + 2) + d + 1 for d in (2, 3)}
 
 
 def fail(msg: str):
@@ -238,8 +250,7 @@ def card_line() -> str:
 
 def nvcc_version() -> str:
     """The release line of `nvcc --version` of the toolkit the kernels
-    build with: the bf16 kernel's bitwise f and g rest on where it fuses
-    multiply-adds (csrc/tile_eval_bf16.cu, NVCC_READ)."""
+    build with."""
     from gpismap_tpu_torch import _native
     out = subprocess.run([_native.NVCC[0], "--version"], capture_output=True,
                          text=True, check=True).stdout
@@ -433,6 +444,8 @@ def kernel_entry(name, replaces, launches_by_path, err, ms, plain_ms, bnd,
     from 0 just before that path ran; `extra` keys are added as given."""
     source = next(src for key, src in (
         ("tile_eval_bf16", "gpismap_tpu_torch/csrc/tile_eval_bf16.cu"),
+        ("tile_eval_backward",
+         "gpismap_tpu_torch/csrc/tile_eval_backward.cu"),
         ("tile_eval", "gpismap_tpu_torch/csrc/tile_eval.cu"),
         ("", "gpismap_tpu_torch/csrc/chol.cu")) if name.startswith(key))
     return {"name": name, "route": "cuda", "source": source,
@@ -455,6 +468,12 @@ def ptxas_lines(name: str, log: str):
             fn = next((label for key, label in (
                 ("tile_eval_bf16_kernelILi2E", "tile_eval_bf16 d=2"),
                 ("tile_eval_bf16_kernelILi3E", "tile_eval_bf16 d=3"),
+                ("tile_bwd_z_kernelILi2E", "tile_bwd_z d=2"),
+                ("tile_bwd_z_kernelILi3E", "tile_bwd_z d=3"),
+                ("tile_bwd_kstar_kernelILi2E", "tile_bwd_kstar d=2"),
+                ("tile_bwd_kstar_kernelILi3E", "tile_bwd_kstar d=3"),
+                ("tile_bwd_linv_kernelILi2E", "tile_bwd_linv d=2"),
+                ("tile_bwd_linv_kernelILi3E", "tile_bwd_linv d=3"),
                 ("tile_eval_kernelILi2E", "tile_eval d=2"),
                 ("tile_eval_kernelILi3E", "tile_eval d=3"),
                 ("chol_init_kernel", "chol_init_kernel"),
@@ -789,6 +808,17 @@ def counts(tile_ops, chol_ops, reset: bool = False):
     return (tile_ops.launches, chol_ops.chol_launches, chol_ops.linv_launches)
 
 
+def bwd_counts(tile_ops, reset: bool = False):
+    """The tile backward kernels' launches (z, kstar, linv); reset=True
+    sets them to 0 first."""
+    if reset:
+        tile_ops.launches_backward = 0
+        for k in tile_ops.launches_backward_by_kernel:
+            tile_ops.launches_backward_by_kernel[k] = 0
+    by = tile_ops.launches_backward_by_kernel
+    return np.asarray([by["z"], by["kstar"], by["linv"]])
+
+
 def rel_err(a: torch.Tensor, b: torch.Tensor, floor: float = 0.0) -> float:
     """max |a - b| over max(max |b|, floor)."""
     a, b = a.detach().double().cpu(), b.detach().double().cpu()
@@ -852,8 +882,9 @@ def render_fwd_bwd(card, render, m, o, d, cfg, tile_ops, chol_ops, label):
     """March all rays through the mapper's factor cache, then the
     hit-compacted correction's backward of the summed hit depths (alpha,
     scale); twice, the first call paying the backward's first use of its
-    CUDA kernels. Returns the march's output and the launches of the
-    second call's correction and backward, counted from 0 just before it."""
+    CUDA kernels. Returns the march's output, the launches of the second
+    call's correction and backward (tile/chol/linv) and its tile backward
+    kernels' (z/kstar/linv), each counted from 0 just before it."""
     walls = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -864,10 +895,12 @@ def render_fwd_bwd(card, render, m, o, d, cfg, tile_ops, chol_ops, label):
         torch.cuda.synchronize()
         t1 = time.time()
         counts(tile_ops, chol_ops, reset=True)
+        bwd_counts(tile_ops, reset=True)
         _, _, g_alpha, g_scale, _ = correction_backward(
             render, m, o[idx], d[idx], out["t_hat"][idx], cfg)
         torch.cuda.synchronize()
         n = np.asarray(counts(tile_ops, chol_ops))
+        nb = bwd_counts(tile_ops)
         walls.append((time.time() - t0, time.time() - t1))
         check_grads(label, g_alpha, g_scale)
     print(f"  {label}: forward+backward {len(o) / walls[1][0]:.0f} rays/s "
@@ -876,13 +909,16 @@ def render_fwd_bwd(card, render, m, o, d, cfg, tile_ops, chol_ops, label):
           f"anew and its backward; the first call {walls[0][0]:.3f} s, "
           f"{walls[0][1]:.3f} s of it in the correction and backward); "
           f"launches tile/chol/linv {n[0]}/{n[1]}/{n[2]} in the correction "
-          f"and its backward; d sum(t)/d scale {float(g_scale):.6g}, max "
-          f"|d sum(t)/d alpha| {float(g_alpha.abs().max()):.6g} ({card})",
+          f"and its backward, of the tile backward kernels z/kstar/linv "
+          f"{nb[0]}/{nb[1]}/{nb[2]}; d sum(t)/d scale {float(g_scale):.6g}, "
+          f"max |d sum(t)/d alpha| {float(g_alpha.abs().max()):.6g} "
+          f"({card})",
           flush=True)
-    if n.min() < 1:
+    if n.min() < 1 or nb[1] < 1:
         fail(f"{label}: the correction and its backward launched "
-             f"tile/chol/linv {n} times")
-    return out, n
+             f"tile/chol/linv {n} times, the tile backward kernels "
+             f"z/kstar/linv {nb}")
+    return out, n, nb
 
 
 def run_render_2d(card, m, cpu, frames, torch_scenes, render, tile_ops,
@@ -892,7 +928,8 @@ def run_render_2d(card, m, cpu, frames, torch_scenes, render, tile_ops,
     floor plan: its beams are marched, not gated), the card's march
     against the CPU port's on every 32nd beam, then the correction's
     backward. Returns the launches of the march and of the correction
-    with its backward, each counted from 0 just before it, and the rays."""
+    with its backward, and of the tile backward kernels there, each
+    counted from 0 just before it, and the rays."""
     if frames is None:
         o_np, d_np, rng = torch_scenes.beams(
             torch_scenes.floor_plan(), torch_scenes.floor_trajectory(28))
@@ -965,18 +1002,18 @@ def run_render_2d(card, m, cpu, frames, torch_scenes, render, tile_ops,
         fail(f"the card's 2D march agrees with the CPU port's on "
              f"{share_agree} of the rays (floor {MARCH_AGREE})")
 
-    out, n_corr = render_fwd_bwd(card, render, m, o, d, cfg, tile_ops,
-                                 chol_ops, f"2D render at {RENDER_STEPS_2D} "
-                                 f"steps")
-    return n_march, n_corr, (o, d, out["t_hat"], out["hit"], cfg)
+    out, n_corr, n_bwd = render_fwd_bwd(card, render, m, o, d, cfg, tile_ops,
+                                        chol_ops, f"2D render at "
+                                        f"{RENDER_STEPS_2D} steps")
+    return n_march, n_corr, n_bwd, (o, d, out["t_hat"], out["hit"], cfg)
 
 
 def run_render_3d(card, m, frames, torch_scenes, render, tile_ops, chol_ops):
     """Phase 10: render_depth from the last ring pose at subsample 2 on the
     3D map, against the scene's noise-free ray lengths, then the march
     and the correction's backward. Returns the launches of render_depth
-    and of the correction with its backward, each counted from 0 just
-    before it, and the rays."""
+    and of the correction with its backward, and of the tile backward
+    kernels there, each counted from 0 just before it, and the rays."""
     pose = frames[-1][1]
     tr, rot = pose[:3], pose[3:12].reshape(3, 3, order="F")
     m._factors = None               # the render fills the factor cache
@@ -1009,9 +1046,9 @@ def run_render_3d(card, m, frames, torch_scenes, render, tile_ops, chol_ops):
     o = torch.as_tensor(o, device=m.device)
     d = torch.as_tensor(d, device=m.device)
     cfg = render.config_from_mapper(m)
-    out, n_corr = render_fwd_bwd(card, render, m, o, d, cfg, tile_ops,
-                                 chol_ops, "3D render")
-    return n_depth, n_corr, (o, d, out["t_hat"], out["hit"], cfg)
+    out, n_corr, n_bwd = render_fwd_bwd(card, render, m, o, d, cfg, tile_ops,
+                                        chol_ops, "3D render")
+    return n_depth, n_corr, n_bwd, (o, d, out["t_hat"], out["hit"], cfg)
 
 
 def check_factor_functions(card, chol_ops, n):
@@ -1047,15 +1084,73 @@ def check_factor_functions(card, chol_ops, n):
         del xk, yk, xr, yr, gk, gr
 
 
+def tile_bwd_work(args, kwargs):
+    """(fp32 operations, bytes) that the tile evaluation's VJP needs on
+    these inputs with every cotangent nonzero: per active tile, with n its
+    cell's unmasked_rows and T(1+D) K* columns, per column V and Y =
+    L^-T Z over those rows of L^-1's lower triangle (n(n+1)/2
+    multiply-adds each), dL over all n^2 pairs of them and d alpha (n);
+    per unmasked K* entry BWD_ENTRY_FLOPS (its derivatives and their
+    chain); bytes: tile_work's inputs, the cotangents of the outputs
+    (tile_work's outputs), and the gradients written: dL over each used
+    cell's n^2 entries, dx, d alpha and dq."""
+    tile_seg, _, xt, _, _, _, qt = args
+    d = kwargs["d"]
+    m, t = xt.shape[-1], qt.shape[-1]
+    segs = tile_seg[tile_seg >= 0].long()
+    cells = torch.unique(segs)
+    n = unmasked_rows(args, kwargs)
+    per_col = n * (n + 1) + n * n + n
+    flops = (2.0 * t * (1 + d) * float(per_col[segs].sum())
+             + BWD_ENTRY_FLOPS[d] * t * (1 + d) * float(n[segs].sum()))
+    nbytes = (tile_work(args, kwargs)[1]
+              + 4.0 * (float((n * n)[cells].sum())
+                       + cells.numel() * (d + 1 + d) * m
+                       + segs.numel() * t * d))
+    return flops, nbytes
+
+
+def device_breakdown(fn, reps: int):
+    """{kernel name: (device ms per call, launches per call)} of fn() over
+    reps calls from a torch.profiler (CUPTI) trace, the largest first;
+    empty, with the reason printed, if the profiler does not trace the
+    card."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(e.key, getattr(e, "device_time_total", 0.0) / 1e3 / reps,
+                 e.count / reps) for e in prof.key_averages()]
+    except RuntimeError as e:
+        print(f"  the profiler did not trace the card: {e}", flush=True)
+        return {}
+    return {k: (ms, n) for k, ms, n in sorted(rows, key=lambda r: -r[1])
+            if ms > 0}
+
+
 def check_tile_function(card, tile_ops, captured, label):
     """Phase 10b, the tile Function on a captured tile plan with random
-    upstream gradients (inactive tiles included) vs autograd through the
-    plain version, and its backward time."""
+    upstream gradients (inactive tiles included): its gradients (the
+    backward kernels) vs autograd through the plain version (GRAD_TOL);
+    the kernels (_launch_backward) vs their plain twin
+    tile_eval_vjp_reference (KERNEL_TOL of each gradient's largest
+    magnitude) and bitwise in two runs; the backward timed three ways in
+    turns: the kernels (through the Function), the autograd recompute
+    tile_eval_backward (the card's backward before the kernels) and plain
+    autograd through tile_eval_reference; then the gradient of (f, g)
+    alone (no cotangent of the variances), where the Z and dL kernels must
+    not launch and dL is exactly zero. Returns the numbers of the kernels
+    line's row."""
     args, kwargs = captured
     d, dev = kwargs["d"], args[1].device
     gen = torch.Generator(device=dev).manual_seed(6)
     hyper0 = [torch.tensor(float(kwargs[k]), device=dev)
               for k in ("scale", "val_const", "grad_const")]
+    names = ("linv", "xt", "alpha", "qt", "scale", "val_const", "grad_const")
     res = []
     for fn in (tile_ops.tile_eval, tile_ops.tile_eval_reference):
         leaves = [args[i].clone().requires_grad_() for i in (1, 2, 3, 6)]
@@ -1067,30 +1162,122 @@ def check_tile_function(card, tile_ops, captured, label):
                      for o in out]
         grads = torch.autograd.grad(out, leaves + hyper, g_out,
                                     retain_graph=True)
-        ms = cuda_ms(lambda: torch.autograd.grad(out, leaves + hyper, g_out,
-                                                 retain_graph=True), 2)
-        res.append((grads, ms))
-        del out, leaves, hyper
+        res.append(dict(grads=grads, out=out, wrt=leaves + hyper))
     worst = 0.0
     parts = []
-    for name, gk, gr in zip(("linv", "xt", "alpha", "qt", "scale",
-                             "val_const", "grad_const"), res[0][0],
-                            res[1][0]):
+    for name, gk, gr in zip(names, res[0]["grads"], res[1]["grads"]):
         rel = rel_err(gk, gr)
         worst = max(worst, rel)
         parts.append(f"{name}={rel:.3g}")
         if float(gk.abs().max()) == 0.0:
             fail(f"tile Function ({label}): zero gradient of {name}")
+
+    # the kernels against their twin, twice
+    hyper = [h.clone() for h in hyper0]
+    bwd_counts(tile_ops, reset=True)
+    k1 = tile_ops._launch_backward(*args, d, *hyper, g_out)
+    k2 = tile_ops._launch_backward(*args, d, *hyper, g_out)
+    torch.cuda.synchronize()
+    n_bwd = bwd_counts(tile_ops) // 2
+    twin = tile_ops.tile_eval_vjp_reference(*args, d, *hyper, g_out)
+    torch.cuda.synchronize()
+    twin_rel = {n: rel_err(a, b) for n, a, b in zip(names, k1, twin)}
+    twin_abs = max(float((a - b).abs().max()) for a, b in zip(k1, twin))
+    same = all(torch.equal(a, b) for a, b in zip(k1, k2))
+
+    # the three backwards in turns
+    fwd, ref = res
+    def recompute():
+        return tile_ops.tile_eval_backward(*args, d, *hyper, g_out)
+
+    ms = {}
+    for key, fn in (("kernels", lambda: torch.autograd.grad(
+                        fwd["out"], fwd["wrt"], g_out, retain_graph=True)),
+                    ("recompute", recompute),
+                    ("autograd", lambda: torch.autograd.grad(
+                        ref["out"], ref["wrt"], g_out, retain_graph=True)),
+                    ("kernels again", lambda: torch.autograd.grad(
+                        fwd["out"], fwd["wrt"], g_out, retain_graph=True))):
+        ms[key] = cuda_ms(fn, 2)
+    parts_ms = device_breakdown(lambda: torch.autograd.grad(
+        fwd["out"], fwd["wrt"], g_out, retain_graph=True), 2)
+    del res, fwd, ref, k1, k2, twin
+
+    # no cotangent of the variances: (f, g) alone
+    leaves = [args[i].clone().requires_grad_() for i in (1, 2, 3, 6)]
+    hl = [h.clone().requires_grad_() for h in hyper0]
+    out = tile_ops.tile_eval(args[0], leaves[0], leaves[1], leaves[2],
+                             args[4], args[5], leaves[3], d, *hl)
+    bwd_counts(tile_ops, reset=True)
+    g_fg = torch.autograd.grad(out[:2], leaves + hl, g_out[:2])
+    torch.cuda.synchronize()
+    n_fg = bwd_counts(tile_ops)
+    leaves_r = [args[i].clone().requires_grad_() for i in (2, 3, 6)]
+    sc_r = hyper0[0].clone().requires_grad_()
+    out_r = tile_ops.tile_eval_reference(args[0], args[1], leaves_r[0],
+                                         leaves_r[1], args[4], args[5],
+                                         leaves_r[2], d, sc_r, *hyper0[1:])
+    want_fg = torch.autograd.grad(out_r[:2], leaves_r + [sc_r], g_out[:2])
+    fg_rel = max(rel_err(a, b) for a, b in zip(
+        [g_fg[i] for i in (1, 2, 3, 4)], want_fg))
+    fg_zero = (float(g_fg[0].abs().max()) == 0.0
+               and float(g_fg[5]) == 0.0 and float(g_fg[6]) == 0.0)
+
     print(f"phase 10b: tile Function, {label}: gradient vs autograd through "
           f"the plain version, relative " + " ".join(parts)
-          + f"; backward {res[0][1]:.3f} ms (plain recompute in chunks), "
-          f"the plain version's autograd {res[1][1]:.3f} ms ({card})",
-          flush=True)
+          + f"; the backward kernels vs tile_eval_vjp_reference, relative "
+          + " ".join(f"{k}={v:.3g}" for k, v in twin_rel.items())
+          + f" (max abs {twin_abs:.3g}), two runs "
+          f"{'bitwise equal' if same else 'DIFFER'}, launches per backward "
+          f"z/kstar/linv {n_bwd[0]}/{n_bwd[1]}/{n_bwd[2]}; backward ms: the "
+          f"kernels {ms['kernels']:.3f} and {ms['kernels again']:.3f}, the "
+          f"recompute (tile_eval_backward) {ms['recompute']:.3f}, plain "
+          f"autograd {ms['autograd']:.3f} ({card})", flush=True)
+    print("  the kernels' backward by device time (profiler, ms per "
+          "backward, launches): " + "; ".join(
+              f"{k[:60]} {v[0]:.3f} ({v[1]:g})"
+              for k, v in list(parts_ms.items())[:8]), flush=True)
+    print(f"  (f, g) alone: launches z/kstar/linv {n_fg[0]}/{n_fg[1]}/"
+          f"{n_fg[2]}; dL and the constants' gradients exactly zero: "
+          f"{fg_zero}; xt, alpha, qt, scale vs autograd through the plain "
+          f"version, relative {fg_rel:.3g}", flush=True)
     if worst > GRAD_TOL:
         fail(f"tile Function gradient ({label}): relative error {worst}")
+    if max(twin_rel.values()) > KERNEL_TOL or not same:
+        fail(f"tile backward kernels ({label}) vs their twin: {twin_rel}, "
+             f"bitwise in two runs: {same}")
+    if n_bwd.min() < 1:
+        fail(f"tile backward ({label}): launches z/kstar/linv {n_bwd}")
+    if n_fg[0] or n_fg[2] or n_fg[1] < 1 or not fg_zero or fg_rel > GRAD_TOL:
+        fail(f"tile backward ({label}) of (f, g) alone: launches "
+             f"z/kstar/linv {n_fg}, zero dL and constants {fg_zero}, "
+             f"relative error {fg_rel}")
+    if ms["kernels"] >= ms["recompute"]:
+        fail(f"tile backward ({label}): the kernels ({ms['kernels']} ms) "
+             f"are not faster than the recompute ({ms['recompute']} ms)")
+    return dict(err=twin_abs, rel=max(twin_rel.values()),
+                ms=ms["kernels"], ms_again=ms["kernels again"],
+                recompute_ms=ms["recompute"], plain_ms=ms["autograd"],
+                bound=bound(*tile_bwd_work(args, kwargs)))
 
 
-def check_correction_vs_cpu(card, render, m, cpu, rays, label):
+def recompute_backward(tile_ops):
+    """A stand-in for ops.tile_eval._launch_backward that runs the
+    autograd recompute tile_eval_backward (the card's tile backward
+    before the kernels; undefined cotangents as zeros), for the readings
+    that set the kernels beside it."""
+    def run(*args):
+        *inputs, grads, needs = args
+        qt, d = inputs[6], inputs[7]
+        nt, _, t = qt.shape
+        grads = [g if g is not None else qt.new_zeros(
+            (nt, t) if i % 2 == 0 else (nt, d, t))
+                 for i, g in enumerate(grads)]
+        return tile_ops.tile_eval_backward(*inputs, grads, needs)
+    return run
+
+
+def check_correction_vs_cpu(card, render, m, cpu, rays, label, tile_ops):
     """Phase 10b: the correction on 256 of the render's hit rays (picked
     with a seed) on the card vs the CPU port on the same map (cpu, moved
     across with runtime.checkpoint) and the same t_hat: t, f and the
@@ -1121,6 +1308,32 @@ def check_correction_vs_cpu(card, render, m, cpu, rays, label):
           + f" relative; min |<g, d>| {float(denom.min()):.3g}; t over the "
           f"{int(ok.sum())} rays with |<g, d>| >= 0.1: {t_ok:.3g} ({card})",
           flush=True)
+    # where the error lies: the rays with |<g, d>| >= 0.1 alone (their
+    # own correction and backward), and all the rays with the card's
+    # tile backward by the autograd recompute in place of the kernels
+    sub = sel[ok.to(sel.device)]
+    gpu_ok = correction_backward(render, m, o[sub], d[sub], t_hat[sub], cfg,
+                                 with_var=True)
+    ref_ok = correction_backward(render, cpu, o[sub].cpu(), d[sub].cpu(),
+                                 t_hat[sub].cpu(), cfg, with_var=True)
+    orig = tile_ops._launch_backward
+    tile_ops._launch_backward = recompute_backward(tile_ops)
+    try:
+        gpu_rc = correction_backward(render, m, o[sel], d[sel], t_hat[sel],
+                                     cfg, with_var=True)
+    finally:
+        tile_ops._launch_backward = orig
+    floors = (1.0, 1.0, 0.0, 0.0)
+    print(f"  the {len(sub)} rays with |<g, d>| >= 0.1 alone: "
+          + " ".join(f"{k} {rel_err(a, b, fl):.3g}" for k, a, b, fl in zip(
+              names, gpu_ok, ref_ok, floors))
+          + f"; all {len(sel)} with the recompute as the card's tile "
+          f"backward: " + " ".join(f"{k} {rel_err(a, b, fl):.3g}" for
+                                    k, a, b, fl in zip(names, gpu_rc, ref,
+                                                       floors))
+          + f"; kernels vs recompute on the card: " + " ".join(
+              f"{k} {rel_err(a, b, fl):.3g}" for k, a, b, fl in zip(
+                  names, gpu, gpu_rc, floors)), flush=True)
     if max(errs.values()) > GRAD_TOL:
         fail(f"{label} correction: card and CPU differ: {errs}")
     check_grads(f"{label} correction", gpu[2], gpu[3])
@@ -1991,28 +2204,17 @@ def kept_share(tile_ops, args, d):
 
 def kernel_alone_ms(fn, kernel: str, reps: int):
     """Mean device time per call of fn() of the CUDA kernel whose name
-    holds `kernel`, over reps calls, from a torch.profiler (CUPTI) trace:
-    the kernel without the work around it in fn. None, and the reason
-    printed, when the trace does not show that kernel once a call."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages() if kernel in e.key]
-    except RuntimeError as e:
-        print(f"  the profiler did not trace the card: {e}", flush=True)
+    holds `kernel`, over reps calls, from a torch.profiler (CUPTI) trace
+    (device_breakdown): the kernel without the work around it in fn.
+    None, and the reason printed, when the trace does not show that
+    kernel once a call."""
+    rows = [v for k, v in device_breakdown(fn, reps).items() if kernel in k]
+    ms, n = sum(r[0] for r in rows), sum(r[1] for r in rows)
+    if n != 1 or ms <= 0:
+        print(f"  the profiler shows {n:g} launches of {kernel} a call, "
+              f"{ms * 1e3:g} us of device time: not measured", flush=True)
         return None
-    n = sum(e.count for e in rows)
-    us = sum(getattr(e, "device_time_total", 0.0) for e in rows)
-    if n != reps or us <= 0:
-        print(f"  the profiler shows {n} launches of {kernel} over {reps} "
-              f"calls, {us} us of device time: not measured", flush=True)
-        return None
-    return us / 1e3 / reps
+    return ms
 
 
 def check_bf16_kernel(card, tile_ops, label, captured):
@@ -2412,15 +2614,17 @@ def main() -> int:
     builds = {"index": index_mod.build_library,
               "tile_eval": tile_ops.build_library,
               "tile_eval_bf16": tile_ops.build_library_bf16,
+              "tile_eval_backward": tile_ops.build_library_backward,
               "chol": chol_ops.build_library}
     with ThreadPoolExecutor(len(builds)) as ex:
         futures = {name: ex.submit(fn) for name, fn in builds.items()}
         logs = {name: f.result() for name, f in futures.items()}
-    print(f"phase 2: built the index, tile, bf16 tile and chol kernel "
-          f"libraries in {time.time() - t0:.1f} s with nvcc "
+    print(f"phase 2: built the index, tile, bf16 tile, tile backward and "
+          f"chol kernel libraries in {time.time() - t0:.1f} s with nvcc "
           f"({nvcc_version()})", flush=True)
     ptx = {name: ptxas_lines(name, logs[name])
-           for name in ("tile_eval", "tile_eval_bf16", "chol")}
+           for name in ("tile_eval", "tile_eval_bf16", "tile_eval_backward",
+                        "chol")}
 
     dev = torch.device("cuda")
     gazebo = torch_scenes.gazebo_path()
@@ -2618,25 +2822,28 @@ def main() -> int:
         # ---- phases 9-10: rendering on the maps of phases 4 and 7 ----
         cpu2 = carry_to_cpu(checkpoint, m, GPisMap2D(device="cpu"),
                             os.path.join(tmp, "map2d.npz"))
-        m9, c9, rays2 = run_render_2d(card, m, cpu2,
-                                      frames if gazebo else None,
-                                      torch_scenes, render, tile_ops,
-                                      chol_ops)
-        m10, c10, rays3 = run_render_3d(card, m3, r3["frames"], torch_scenes,
-                                        render, tile_ops, chol_ops)
+        m9, c9, b9, rays2 = run_render_2d(card, m, cpu2,
+                                          frames if gazebo else None,
+                                          torch_scenes, render, tile_ops,
+                                          chol_ops)
+        m10, c10, b10, rays3 = run_render_3d(card, m3, r3["frames"],
+                                             torch_scenes, render, tile_ops,
+                                             chol_ops)
 
         # ---- phase 10b: the autograd Functions vs their plain versions ----
         for n in (384, 1280):
             check_factor_functions(card, chol_ops, n)
-        check_tile_function(card, tile_ops, r3["tile_args"],
-                            "d=3, phase 7's tile plan")
-        check_tile_function(card, tile_ops, cap.args,
-                            "d=2, phase 4's tile plan")
-        check_correction_vs_cpu(card, render, m, cpu2, rays2, "2D")
+        bwd = {3: check_tile_function(card, tile_ops, r3["tile_args"],
+                                      "d=3, phase 7's tile plan"),
+               2: check_tile_function(card, tile_ops, cap.args,
+                                      "d=2, phase 4's tile plan")}
+        check_correction_vs_cpu(card, render, m, cpu2, rays2, "2D",
+                                tile_ops)
         cpu3 = carry_to_cpu(checkpoint, m3,
                             GPisMap3D(camera=m3.cam, device="cpu"),
                             os.path.join(tmp, "map3d_cpu.npz"))
-        check_correction_vs_cpu(card, render, m3, cpu3, rays3, "3D")
+        check_correction_vs_cpu(card, render, m3, cpu3, rays3, "3D",
+                                tile_ops)
 
         # ---- phase 11: checkpoint and mex on the card ----
         run_checkpoint_mex(card, m3, frames, r3["frames"], r3["qr"],
@@ -2751,6 +2958,24 @@ def main() -> int:
             main=f"bf16_test_{dd}d", library="none",
             kernel_alone_ms=k["kernel_ms"],
             ptxas=[ln for ln in ptx["tile_eval_bf16"]
+                   if f"d={dd})" in ln]))
+    rb = ("none: the JAX package differentiates its XLA twin "
+          "_ongpis_eval_tile, gpismap_tpu/models/cluster.py:329 (the "
+          "Pallas kernel pallas_tile.py:118 has no VJP)")
+    for dd, nb_path in ((2, (("render_2d_correction_backward", b9),)),
+                        (3, (("render_3d_correction_backward", b10),))):
+        k = bwd[dd]
+        path = nb_path[0][0]
+        kernels.append(kernel_entry(
+            f"tile_eval_backward (d={dd})", rb,
+            {"update_test": 0, path: int(nb_path[0][1].sum())}, k["err"],
+            k["ms"], k["plain_ms"], k["bound"], None, main=path,
+            launches_by_kernel={path: dict(zip(
+                ("z", "kstar", "linv"), map(int, nb_path[0][1])))},
+            max_rel_err=k["rel"], ms_again=k["ms_again"],
+            recompute_ms=k["recompute_ms"],
+            plain="autograd through tile_eval_reference",
+            ptxas=[ln for ln in ptx["tile_eval_backward"]
                    if f"d={dd})" in ln]))
     print(json.dumps({"kernels": kernels}))
     print(card)

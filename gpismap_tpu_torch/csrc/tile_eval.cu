@@ -63,7 +63,7 @@
 // TF32 error would flip the var_thre blend
 // (gpismap_tpu/models/cluster.py:1086-1109). The Pallas kernel's bf16
 // variant (bf16=True) is the kernel of tile_eval_bf16.cu; both compute K*
-// with kstar<D> of tile_kstar.cuh.
+// with kstar of tile_kstar.cuh.
 #include <cuda_runtime.h>
 
 #include "tile_kstar.cuh"
@@ -192,8 +192,10 @@ tile_eval_kernel(const int* __restrict__ tile_seg,
   // mean alpha^T K* (pallas_tile.py:85-91) from the last row panel's
   // stages, which cover every row ----
   // ks[buf] [BK][BN] <- rows k0 + kr0 .. + 7 of K* at this thread's column;
-  // with `mean`, their alpha-weighted sum is added to msm[tid]
-  auto compute_k = [&](int k0, float* kst, bool mean) {
+  // with `mean`, their alpha-weighted sum is added to msm[tid]. `split`
+  // names the value entry's rounding of 1 + a r (tile_kstar.cuh): split
+  // in the stage before the loop, fused in the loop
+  auto compute_k = [&](int k0, float* kst, bool mean, bool split) {
     float q[D];
 #pragma unroll
     for (int i = 0; i < D; ++i) q[i] = qsm[i * BN + col];
@@ -204,7 +206,10 @@ tile_eval_kernel(const int* __restrict__ tile_seg,
     for (int i = 0; i < KROWS; ++i) {
       float v = 0.f;
       if (cblk >= 0 && r0 + i < mp) {
-        v = kstar<D>(rb, k, cblk, q, xsm, vms, gms, m, a, a2);
+        v = split ? kstar<D, SPLIT_1AR>(rb, k, cblk, q, xsm, vms, gms, m, a,
+                                        a2)
+                  : kstar<D, FUSED_1AR>(rb, k, cblk, q, xsm, vms, gms, m, a,
+                                        a2);
         if (mean) ms = fmaf(als[r0 + i], v, ms);
       }
       kst[(kr0 + i) * BN + col] = v;
@@ -228,7 +233,7 @@ tile_eval_kernel(const int* __restrict__ tile_seg,
   int i0 = 0, k0 = 0, buf = 0;
   load_l(L, mp, vec, i0, k0, pr);
   store_l(pr, ls);
-  compute_k(k0, ks, i0 == last_i0);
+  compute_k(k0, ks, i0 == last_i0, true);
   for (;;) {
     // the next stage: k0 + BK in this panel, or the next panel's first
     int ni0 = i0, nk0 = k0 + BK;
@@ -268,7 +273,7 @@ tile_eval_kernel(const int* __restrict__ tile_seg,
     if (!more) break;
     // the other buffer was last read before this iteration's barrier
     store_l(pr, ls + (buf ^ 1) * STAGE_L);
-    compute_k(nk0, ks + (buf ^ 1) * STAGE_K, ni0 == last_i0);
+    compute_k(nk0, ks + (buf ^ 1) * STAGE_K, ni0 == last_i0, false);
     buf ^= 1;
     i0 = ni0;
     k0 = nk0;

@@ -6,7 +6,7 @@
 // :95-104), the JAX package's opt-in GPISMAP_PALLAS_BF16 query path. It
 // computes the function of the f32 kernel (tile_eval.cu) with the variance
 // product in bf16: for each tile of T queries of one cluster cell
-//   K*      [MP, T(1+D)] in f32 (kstar<D>, tile_kstar.cuh),
+//   K*      [MP, T(1+D)] in f32 (kstar, tile_kstar.cuh),
 //   f, g    = alpha^T K* in f32, bitwise the f32 kernel's,
 //   V       = bf16(L^-1) bf16(K*) (round to nearest even), f32 sums,
 //   vf, vg  = const - colsum(V^2) in f32.
@@ -33,17 +33,15 @@
 //     In packed order L^-1 stays lower triangular.
 //   - K* built once per block, held in shared memory. Each thread computes
 //     8 rows (one half of a stage) of one column of each kept stage, in f32
-//     with kstar<D>, sums alpha K* over them with the f32 kernel's fmaf
+//     with kstar, sums alpha K* over them with the f32 kernel's fmaf
 //     chain and adds that into its half's partial in stage order (so the
 //     two partials of a column are the f32 kernel's two chains, less
-//     stages that add +0: f and g are bitwise the f32 kernel's). nvcc
-//     fuses the value entry's 1 + a r into one multiply-add in the f32
-//     kernel's stage loop but not in its copy before the loop (stage 0 of
-//     a single-panel cell, MP <= 128); kstar's ONE_AR names that rounding
-//     here, stage by stage. That rule is read from the code of one
-//     toolkit (NVCC_READ below; chip_smoke.py phase 2 prints the one it
-//     builds with): another nvcc may fuse elsewhere, which only the
-//     card's bitwise f/g gate (phase 17a) shows. Then it rounds the 8
+//     stages that add +0: f and g are bitwise the f32 kernel's). kstar
+//     spells out its every rounding; the f32 kernel rounds the value
+//     entry's 1 + a r split in its copy of stage 0 before its stage loop
+//     and fused in the loop, so for a cell of one row panel (MP <= 128),
+//     whose mean sums the pre-loop stage 0, this kernel names the split
+//     rounding for stage 0 and the fused one elsewhere. Then it rounds the 8
 //     entries to bf16 into one 16-byte row of the B operand's 8x8 core
 //     matrices (K-major, no swizzle; ldmatrix reads them). At d=3 the
 //     lanes l % 8 + 8 u (u < 4) take four stages at once and pass their
@@ -77,9 +75,6 @@
 // kept-stage count, so small cells share an SM), the rings (48 KiB) and the
 // cell's inputs: at most 226.1 KB (d=3, M=320) and 153.2 KB (d=2, M=128).
 // At d=2 a thread keeps to 128 registers, so two blocks can share an SM.
-//
-// NVCC_READ: the toolkit whose code the ONE_AR rule above was read from:
-// CUDA 12.9, nvcc V12.9.86, -O3 for sm_90a (_native.NVCC).
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,11 +84,11 @@
 namespace {
 
 constexpr int SK = 16;               // rows of a stage
+// the f32 kernel's row panel (tile_eval.cu BM)
+constexpr int F32_PANEL = 128;
 // a core matrix of the K* operand: 8 columns x 8 rows of K (16 B a column)
 constexpr int CORE_K_BYTES = 128;    // to the next 8 rows of K
 constexpr int CORE_N_BYTES = 256;    // to the next 8 columns
-// the f32 kernel's row panel (tile_eval.cu BM)
-constexpr int F32_PANEL = 128;
 
 // The block at dimension D: BN K* columns, NTHREADS threads in
 // warpgroups of 64 packed L^-1 rows each (a panel of PM rows, SPP kept
@@ -334,17 +329,18 @@ tile_eval_bf16_kernel(const int* __restrict__ tile_seg,
       if (j < nk) {
         const int r0 = SK * kst[j] + 8 * half;
         int rb = r0 / m, k = r0 - rb * m;
-        // the f32 kernel computes stage 0 of a cell of one row panel
-        // before its stage loop, where nvcc does not fuse 1 + a r
-        const bool unfused = mp <= F32_PANEL && kst[j] == 0;
+        // the f32 kernel's stage 0 before its stage loop (the one its
+        // mean sums in a cell of one row panel)
+        const bool split = mp <= F32_PANEL && kst[j] == 0;
         float kv[8];
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           float v = 0.f;
           if (cblk >= 0 && r0 + i < mp) {
-            v = unfused
-                    ? kstar<D, 2>(rb, k, cblk, q, xsm, vms, gms, m, a, a2)
-                    : kstar<D, 1>(rb, k, cblk, q, xsm, vms, gms, m, a, a2);
+            v = split ? kstar<D, SPLIT_1AR>(rb, k, cblk, q, xsm, vms, gms, m,
+                                            a, a2)
+                      : kstar<D, FUSED_1AR>(rb, k, cblk, q, xsm, vms, gms, m,
+                                            a, a2);
             ms = fmaf(als[r0 + i], v, ms);
           }
           kv[i] = v;

@@ -99,7 +99,7 @@ def test_strict_3d_update_batch_matches_update(frames_3d):
 
 
 @pytest.mark.parametrize("mode", ["strict", "snapshot"])
-def test_other_reeval_modes_are_not_ported(frames_3d, mode):
+def test_strict_and_snapshot_modes_map_the_scene(frames_3d, mode):
     """Every mode of the JAX package is ported ("fused" is checked
     against the hybrid map in tests/test_torch_slice3d.py). "strict", the
     host replay of the per-cell order, gives the hybrid map (the order
@@ -134,7 +134,7 @@ def test_mode_resolution_matches_jax(strict, mode, want):
     assert mt.strict_reeval == mj.strict_reeval == (want != "snapshot")
 
 
-def test_unknown_and_fused_modes_raise():
+def test_unknown_mode_raises_and_fused_is_accepted():
     """An unknown mode raises in both packages; "fused" is accepted by
     both (it raised in the port before the scan was ported)."""
     with pytest.raises(ValueError, match="unknown reeval_mode"):

@@ -120,8 +120,10 @@ def test_tile_eval_backward_matches_autograd(d, chunk_tiles, monkeypatch):
 
 def test_functions_route_gradients_through_their_backward(monkeypatch):
     """_Chol, _Linv and _TileEval wired on the CPU with their launches
-    stood in by the plain versions: the gradients of each input reach
-    the right slot, through the closed forms and the recompute."""
+    stood in by the plain versions (the tile backward's by its closed-form
+    twin, tile_eval_vjp_reference): the gradients of each input reach the
+    right slot, through the closed forms; the autograd recompute
+    (tile_eval_backward) is never reached."""
     calls = []
 
     def fake_factor(name, x):
@@ -134,8 +136,17 @@ def test_functions_route_gradients_through_their_backward(monkeypatch):
         calls.append("tile")
         return tile_ops.tile_eval_reference(*args)
 
+    def fake_tile_backward(*args):
+        calls.append("tile backward")
+        return tile_ops.tile_eval_vjp_reference(*args)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the tile Function reached tile_eval_backward")
+
     monkeypatch.setattr(chol_ops, "_launch", fake_factor)
     monkeypatch.setattr(tile_ops, "_launch", fake_tile)
+    monkeypatch.setattr(tile_ops, "_launch_backward", fake_tile_backward)
+    monkeypatch.setattr(tile_ops, "tile_eval_backward", refuse)
     k = _spd(2, 12, seed=5).requires_grad_()
     gw = torch.randn((2, 12, 12), dtype=torch.float64,
                      generator=torch.Generator().manual_seed(6))
@@ -163,7 +174,7 @@ def test_functions_route_gradients_through_their_backward(monkeypatch):
         grads.append(torch.autograd.grad(loss, leaves + [scale]))
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-10)
-    assert calls[-1] == "tile"
+    assert calls[-2:] == ["tile", "tile backward"]
 
 
 # ---------------------------------------------------------------------------

@@ -251,14 +251,15 @@ def test_set_camera_tables():
 
 
 @pytest.mark.parametrize("mode", ["fused"])
-def test_other_reeval_modes_are_not_ported(mode):
+def test_fused_reeval_mode_maps_as_hybrid(mode):
     """"fused", the per-cell scan, gives the hybrid map after 3 frames:
     the same live nodes and, at this file's tolerances, the same field
     (the JAX package calls the two observably equal). It raised before
     the scan was ported; its match with the JAX package's fused mapper is
     tests/test_torch_modes.py::test_mode_3d_matches_jax. The "strict"
-    and "snapshot" cases of this test run in tests/test_torch_modes.py,
-    beside that file's own run of the strict replay."""
+    and "snapshot" modes are checked in tests/test_torch_modes.py
+    (test_strict_and_snapshot_modes_map_the_scene), beside that file's
+    own run of the strict replay."""
     import torch_maps
     hybrid = torch_maps.built(3, 3)
     m = torch_maps.built(3, 3, mode=mode)

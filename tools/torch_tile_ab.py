@@ -39,17 +39,18 @@ Usage: python3 tools/torch_tile_ab.py [--bf16] [FILE ...]    (needs CUDA)
 """
 import ctypes as ct
 import os
+import re
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# the K* entry of the kernel's stage loop, and what kconst puts there
-KSTAR_CALL = "kstar<D>(rb, k, cblk, q, xsm, vms, gms, m, a, a2)"
+# the K* entries of each kernel's K* build (one per rounding of 1 + a r,
+# tile_kstar.cuh), and what kconst puts there
+KSTAR_CALL = re.compile(r"kstar<D, (?:SPLIT|FUSED)_1AR>\([^;]*?a2\)")
 KCONST = "(1e-3f * (float)(k + 1))"
-# the bf16 kernel's K* calls (ONE_AR 1 and 2) and its k-step
-KSTAR_BF16 = "kstar<D, {}>(rb, k, cblk, q, xsm, vms, gms, m, a, a2)"
+# the bf16 kernel's k-step
 PRODUCT_CALL = "mma_step<BN>(acc, af, kb, lane);"
 
 
@@ -58,23 +59,20 @@ def variants(extra, bf16: bool):
     from gpismap_tpu_torch.ops import tile_eval as tile_ops
     if bf16:
         src = open(tile_ops._SRC_BF16).read()
-        calls = [c for c in (KSTAR_BF16.format(1), KSTAR_BF16.format(2))
-                 if src.count(c) == 1]
-        if len(calls) != 2 or src.count(PRODUCT_CALL) != 1:
-            raise RuntimeError("tile_eval_bf16.cu: the K* calls or the "
-                               "k-step to replace are not found once")
-        kconst = src
-        for c in calls:
-            kconst = kconst.replace(c, KCONST)
-        return ([("kconst", kconst, []),
+        if (len(KSTAR_CALL.findall(src)) != 2
+                or src.count(PRODUCT_CALL) != 1):
+            raise RuntimeError("tile_eval_bf16.cu: the two K* calls or the "
+                               "k-step to replace are not found")
+        return ([("kconst", KSTAR_CALL.sub(KCONST, src), []),
                  ("noproduct", src.replace(PRODUCT_CALL, ";"), [])]
                 + [(os.path.relpath(os.path.abspath(p), ROOT),
                     open(p).read(), []) for p in extra])
     src = open(tile_ops._SRC).read()
-    if src.count(KSTAR_CALL) != 1:
-        raise RuntimeError(f"tile_eval.cu has {src.count(KSTAR_CALL)} "
-                           f"K* calls to replace, expected 1")
-    out = [("kconst", src.replace(KSTAR_CALL, KCONST), []),
+    n = len(KSTAR_CALL.findall(src))
+    if n != 2:
+        raise RuntimeError(f"tile_eval.cu has {n} K* calls to replace, "
+                           f"expected 2")
+    out = [("kconst", KSTAR_CALL.sub(KCONST, src), []),
            ("fastmath", src, ["--use_fast_math"])]
     for path in extra:
         label = os.path.relpath(os.path.abspath(path), ROOT)
