@@ -50,6 +50,22 @@ def _torch_seed(*parts) -> int:
         1, np.uint64)[0] >> np.uint64(1))
 
 
+def check_pairs(seed: int, n_frames: int, mix: dict) -> list:
+    """The (episode, frame) pairs a stream's check reads, in the order it
+    reads them, drawn from the seed alone: mix["pairs"] of them from the
+    first mix["pair_episodes"] episodes, which every sound window on the
+    card finishes. The first is an episode's last frame (the largest map).
+    A first frame, which finds no map, is never drawn: its inserts are
+    most of a percentile's pool wherever it is in it, and would hide a
+    fault of the later frames."""
+    rng = np.random.default_rng(_seed(seed, 7))
+    first = (int(rng.integers(mix["pair_episodes"])), n_frames - 1)
+    rest = [(e, j) for e in range(mix["pair_episodes"])
+            for j in range(1, n_frames) if (e, j) != first]
+    order = rng.permutation(len(rest))[:mix["pairs"] - 1]
+    return [first] + [rest[int(i)] for i in order]
+
+
 # ---- configurations ------------------------------------------------------
 class Scene:
     """A configuration's sensor, frame schedule and query set, made from
@@ -113,23 +129,30 @@ class Scene:
         return scenes.hit_points_3d(z, self.poses[frames], self.cam,
                                     self.cfg["check"]["pixel_skip"])
 
-    def frame_numbers(self, cap) -> dict:
-        """The map after the captured frame against the reference's
-        account of the frame: its candidates and the re-evaluation of the
-        map before it."""
-        cfg = self.cfg
-        up, obs, tree = cfg["update"], cfg["obs"], cfg["tree"]
+    def candidates(self, cap) -> dict:
+        """The reference's candidate node of each beam or pixel of the
+        captured frame."""
+        up, obs = self.cfg["update"], self.cfg["obs"]
         if self.dim == 2:
-            cand = update_ref.scan_candidates(*cap["args"], up, obs,
+            return update_ref.scan_candidates(*cap["args"], up, obs,
                                               self.device)
-            strict = cfg["mapper"]["options"].get("strict_reeval", False)
-        else:
-            cand = update_ref.depth_candidates(*cap["args"], self.cam, up,
-                                               obs, self.device)
-            strict = cfg["mapper"]["options"]["reeval_mode"] != "snapshot"
-        ref = update_ref.reeval(cap["before"], cand, up, tree, strict)
-        return update_ref.compare_frame(cap["before"], cap["nodes"], cand,
-                                        ref, cfg["check"], tree, self.device)
+        return update_ref.depth_candidates(*cap["args"], self.cam, up, obs,
+                                           self.device)
+
+    def frame_numbers(self, cap, cand=None) -> dict:
+        """The map after the captured frame against the reference's
+        account of the frame: its candidates (`cand` in their place where
+        given) and the re-evaluation of the map before it."""
+        cfg = self.cfg
+        opts = cfg["mapper"]["options"]
+        strict = opts.get("strict_reeval", False) if self.dim == 2 \
+            else opts["reeval_mode"] != "snapshot"
+        own = self.candidates(cap)
+        ref = update_ref.reeval(cap["before"], own, cfg["update"],
+                                cfg["tree"], strict)
+        return update_ref.compare_frame(
+            cap["before"], cap["nodes"], own if cand is None else cand, ref,
+            cfg["check"], cfg["tree"], self.device)
 
     def map_numbers(self, nodes_pos, frames) -> dict:
         return truth.map_numbers(self, nodes_pos, self.hits(frames),
@@ -211,6 +234,7 @@ class Run:
         self.spans = {"update": [], "test": []}
         self.latencies = []
         self.captures = []
+        self.pairs = None       # a stream's check pairs (check_pairs)
         self.paused_s = 0.0     # the window's time spent on captures
 
     def sync(self):
@@ -255,16 +279,14 @@ class Run:
         gc.collect()
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
+        t0 = time.perf_counter()
         self.checks = self.check()
+        self.check_s = time.perf_counter() - t0
         return self.result()
 
     # stream: one mapper fed frame by frame, queried after each frame
     def _setup_stream(self):
-        sc = self.scene
-        pick = np.random.default_rng(_seed(self.seed, 7)).choice(
-            sc.n_frames - 1, self.mix["captures_per_episode"] - 1,
-            replace=False)
-        self.capture_at = set(int(i) for i in pick) | {sc.n_frames - 1}
+        self.pairs = check_pairs(self.seed, self.scene.n_frames, self.mix)
         self._episode_loop(10 ** 9, self.scene.episode(self.seed, 10 ** 9))
         self.mapper.reset()                     # warm-up: one episode
 
@@ -272,14 +294,14 @@ class Run:
         """One episode: the map reset, then each frame's update() and
         test(). In the window, frames start until the deadline (which the
         captures' time moves on; returns False once it passed), each
-        frame's latency is kept, and the frames in capture_at keep the map
-        before and after the update, for the check."""
+        frame's latency is kept, and the frames of the check's pairs keep
+        the map before and after the update."""
         m = self.mapper
         m.reset()
         for j, args in enumerate(frames):
             if window and time.perf_counter() >= deadline + self.paused_s:
                 return False
-            keep = window and j in self.capture_at
+            keep = window and (episode, j) in self.pairs
             t0 = time.perf_counter()
             before = snapshot(m) if keep else None
             self.paused_s += time.perf_counter() - t0
@@ -370,54 +392,74 @@ class Run:
 
     # -- the check ---------------------------------------------------------
     def check(self) -> dict:
-        """Every number compared, the largest over the checked calls: the
-        gaps between the program's answers and the reference's, the share
-        of queries left out, and the map's numbers against the scene."""
+        """Every number compared: the gaps between the program's answers
+        and the reference's, the share of queries left out, and the map's
+        numbers against the scene, the largest over the first
+        mix["checks"] captures; in a stream, each checked frame's numbers
+        against the reference's account of it, the largest over the
+        frames, but the 95th percentiles of the new nodes' gaps over the
+        square views of all the checked frames together. Frames are
+        checked in the order of the seed's pairs that the window reached,
+        past the first mix["checks"] until that pool holds
+        mix["tail_pool"] nodes."""
         caps = self.captures
-        rng = np.random.default_rng(_seed(self.seed, 13))
+        if self.pairs is not None:
+            at = {(c["episode"], c["frame"]): c for c in caps}
+            caps = [at[p] for p in self.pairs if p in at]
         k = self.mix["checks"]
-        if len(caps) > k:
-            # the last frame of the last whole episode (the largest map)
-            # and a seeded sample of the others
-            last = [i for i, c in enumerate(caps)
-                    if c["frame"] == self.scene.n_frames - 1]
-            keep = last[-1] if last else len(caps) - 1
-            rest = [i for i in range(len(caps)) if i != keep]
-            pick = rng.choice(len(rest), k - 1, replace=False)
-            caps = [caps[rest[i]] for i in sorted(pick)] + [caps[keep]]
         spec = gp_spec(self.cfg)
         nums = dict(f=0.0, grad=0.0, var_f=0.0, var_grad=0.0,
                     excluded_share=0.0, off_surface_m=0.0,
                     uncovered_share=0.0, new_grad=0.0, new_noise=0.0,
                     new_grad_p95=0.0, new_noise_p95=0.0, new_spurious=0.0,
                     new_unmatched=0.0, reeval_wrong=0.0,
-                    new_grad_max=0.0, new_noise_max=0.0, nodes=0,
-                    new_nodes=0, reeval_judged=0, reeval_excused=0.0,
-                    reeval_ambiguous=0.0)
-        want = np.dtype(self.cfg["precision"])
-        self.checked = len(caps)
+                    new_grad_max=0.0, new_noise_max=0.0,
+                    new_grad_p95_frame=0.0, new_noise_p95_frame=0.0,
+                    nodes=0, new_nodes=0, reeval_judged=0,
+                    reeval_excused=0.0, reeval_ambiguous=0.0)
+        self.checked = min(len(caps), k)
+        self.checked_pairs, self.frames, self.new_pool = [], [], 0
         if not caps:
             return {key: np.inf for key in nums}
-        for c in caps:
-            nd = c["nodes"]
-            cells = reference.Cells(spec, nd["pos"], nd["grad"], nd["val"],
-                                    nd["pos_sig"], nd["grad_sig"],
-                                    self.device)
-            rows, valid, rq, exc = reference.reference_answers(cells, c["q"])
-            got = reference.compare(rows, valid, rq, exc, c["out"], spec)
-            if np.asarray(c["out"]).dtype != want:
-                # answers in another precision than the configuration
-                # states are not the configuration's
-                got["f"] = np.inf
-            frames = list(range(self.scene.n_frames)) if c["frame"] is None \
-                else [c["frame"]]
-            got.update(self.scene.map_numbers(nd["pos"], frames))
-            got["nodes"] = len(nd["pos"])
-            if "before" in c:
-                got.update(self.scene.frame_numbers(c))
+        for i, c in enumerate(caps):
+            stream = "before" in c
+            if i >= k and not (stream
+                               and self.new_pool < self.mix["tail_pool"]):
+                break
+            got = self._answer_numbers(c, spec) if i < k else {}
+            if stream:
+                fr = self.scene.frame_numbers(c)
+                self.frames.append(fr)
+                self.checked_pairs.append((c["episode"], c["frame"]))
+                self.new_pool += len(fr["square"]["noise"])
+                got.update(fr)
             for key in nums:
                 nums[key] = max(nums[key], got.get(key, 0.0))
+        if self.frames:
+            for key in ("grad", "noise"):
+                gaps = np.concatenate([f["square"][key]
+                                       for f in self.frames])
+                nums[f"new_{key}_p95"] = float(np.quantile(gaps, 0.95)) \
+                    if len(gaps) else 0.0
         return nums
+
+    def _answer_numbers(self, c, spec) -> dict:
+        """A captured test() call against the reference's answers, and
+        the map it read against the scene."""
+        nd = c["nodes"]
+        cells = reference.Cells(spec, nd["pos"], nd["grad"], nd["val"],
+                                nd["pos_sig"], nd["grad_sig"], self.device)
+        rows, valid, rq, exc = reference.reference_answers(cells, c["q"])
+        got = reference.compare(rows, valid, rq, exc, c["out"], spec)
+        if np.asarray(c["out"]).dtype != np.dtype(self.cfg["precision"]):
+            # answers in another precision than the configuration states
+            # are not the configuration's
+            got["f"] = np.inf
+        frames = list(range(self.scene.n_frames)) if c["frame"] is None \
+            else [c["frame"]]
+        got.update(self.scene.map_numbers(nd["pos"], frames))
+        got["nodes"] = len(nd["pos"])
+        return got
 
     def correct(self) -> bool:
         return all(self.checks[k] <= lim for k, lim in self.limits.items())
@@ -470,6 +512,14 @@ class Run:
             dev["window_s"] = self.tr.window_s
             out["breakdown"] = {"device_ops": self.tr.device_ops(),
                                 "idle_gaps": self.tr.idle_gaps()}
+        if self.pairs is not None:
+            # what a stream's check read: the pairs, in the seed's order,
+            # and the size of the percentiles' pool (read, not compared)
+            out["checked"] = {
+                "checked_pairs": [list(p) for p in self.checked_pairs],
+                "listed_pairs": len(self.pairs),
+                "new_pool": self.new_pool,
+                "tail_pool": self.mix["tail_pool"]}
         # a number that could not be read (no call captured) prints null
         out["checks"] = {k: [float(self.checks[k]) if np.isfinite(
             self.checks[k]) else None, lim] for k, lim in self.limits.items()}

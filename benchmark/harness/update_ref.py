@@ -578,12 +578,14 @@ def compare_frame(before: dict, after: dict, cand: dict, ref: dict,
     (within chk["match_radius_m"]) or a moved node's; `new_unmatched` is
     the share that is neither. A candidate's node has to carry its normal
     and noises: the median gaps (`new_grad`, absolute; `new_noise`,
-    relative) and the 95th percentiles over views with a cosine of at
-    least VIEW_MIN (`new_grad_p95`, `new_noise_p95`: a normal from the
-    probes' finite differences amplifies the float32 rounding of the
+    relative), the gaps of the nodes viewed at a cosine of at least
+    VIEW_MIN (`square`: the rows of `after` and their gaps, which the
+    check pools over its frames for the 95th percentiles; a normal from
+    the probes' finite differences amplifies the float32 rounding of the
     observation GP, and the view term amplifies it again at grazing
-    views, so the largest gap, `_max`, swings from seed to seed), and the
-    share whose candidate the reference would not insert
+    views, so the largest gap, `_max`, swings from seed to seed, and a
+    frame's own percentile, `_p95_frame`, is the largest of a few), and
+    the share whose candidate the reference would not insert
     (`new_spurious`)."""
     t = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=device)
     full = lambda nd, ps, gs: _rows(np.concatenate(
@@ -636,9 +638,11 @@ def compare_frame(before: dict, after: dict, cand: dict, ref: dict,
     new, j = new[is_cand], j[is_cand]
     out["new_nodes"] = int(len(new))
     if len(new) == 0:
-        out.update(new_grad=0.0, new_noise=0.0, new_grad_p95=0.0,
-                   new_noise_p95=0.0, new_spurious=0.0, new_grad_max=0.0,
-                   new_noise_max=0.0)
+        out.update(new_grad=0.0, new_noise=0.0, new_grad_p95_frame=0.0,
+                   new_noise_p95_frame=0.0, new_spurious=0.0,
+                   new_grad_max=0.0, new_noise_max=0.0,
+                   square=dict(rows=np.zeros(0, np.int64),
+                               grad=np.zeros(0), noise=np.zeros(0)))
         return out
     sure = ~cand["ambiguous"][j]
     g = (t(after["grad"])[new] - cand["grad"][j]).abs().amax(-1)
@@ -652,11 +656,14 @@ def compare_frame(before: dict, after: dict, cand: dict, ref: dict,
     p95 = lambda x: torch.quantile(x, 0.95)
     out.update(new_grad=stat(g, torch.median),
                new_noise=stat(nz, torch.median),
-               new_grad_p95=stat(g[square], p95),
-               new_noise_p95=stat(nz[square], p95),
+               new_grad_p95_frame=stat(g[square], p95),
+               new_noise_p95_frame=stat(nz[square], p95),
                new_grad_max=stat(g, torch.max),
                new_noise_max=stat(nz, torch.max),
-               new_spurious=float(spur.double().mean()))
+               new_spurious=float(spur.double().mean()),
+               square=dict(rows=new[sure][square].cpu().numpy(),
+                           grad=g[square].cpu().numpy(),
+                           noise=nz[square].cpu().numpy()))
     return out
 
 

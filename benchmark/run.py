@@ -78,6 +78,8 @@ def main(argv=None) -> int:
         print(f"benchmark: the process loaded {bad}, which nothing the "
               "benchmark runs may import", file=sys.stderr)
         return 3
+    for k, v in out.get("checked", {}).items():
+        print(f"checked {k}: {v!r}", file=sys.stderr)
     for k, (v, lim) in out["checks"].items():
         print(f"check {k}: {v!r} (limit {lim!r})", file=sys.stderr)
     print(json.dumps(out))

@@ -31,20 +31,37 @@ def card():
         pytest.skip("needs a CUDA device")
 
 
-def scratch_copy(dst, tiny=("room2d", "tiny3d")):
+# The tiny scenes' pool of square-view new nodes, in place of the stream
+# mix's tail_pool: the room's 181 beams add some 30 over the four pairs
+# its 3 frames list (the 3D object some 250 over three).
+TAIL_POOL = 24
+
+
+def scratch_copy(dst, tiny=("room2d", "tiny3d"), frames=None):
     """A copy of the benchmark (BENCHMARK.json and the folder) under dst,
     with the tiny CPU configurations added as files and entries: each
     under both mixes, held to the limits of its full-size configuration's
-    cell of that mix (of its stream cell where it has none). Returns the
-    loaded BENCHMARK.json of the copy."""
+    cell of that mix (of its stream cell where it has none), with
+    `frames` frames an episode where given; the stream mix's pool is
+    TAIL_POOL. Returns the loaded BENCHMARK.json of the copy."""
     shutil.copytree(BENCH, os.path.join(dst, "benchmark"),
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
     with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
         b = json.load(f)
+    mix_file = os.path.join(dst, "benchmark", "traffic", "stream.json")
+    with open(mix_file) as f:
+        mix = json.load(f)
+    with open(mix_file, "w") as f:
+        json.dump(dict(mix, tail_pool=TAIL_POOL), f)
     full = {"room2d": "gazebo2d", "tiny3d": "bigbird3d"}
     for c in tiny:
-        shutil.copy(os.path.join(DATA, f"{c}.json"),
-                    os.path.join(dst, "benchmark", "configs", f"{c}.json"))
+        with open(os.path.join(DATA, f"{c}.json")) as f:
+            cfg = json.load(f)
+        if frames is not None:
+            cfg["scene"]["frames"] = frames
+        with open(os.path.join(dst, "benchmark", "configs", f"{c}.json"),
+                  "w") as f:
+            json.dump(cfg, f)
         b["configs"].append({"name": c, "source": "the tests' tiny scene",
                              "file": f"benchmark/configs/{c}.json",
                              "reduced": [], "why": "CPU tests"})

@@ -9,6 +9,8 @@ classes and restores them.
   one_answer    test() alters the f of its surest answer by 0.01
   new_normals   the frame's new nodes get their normals' x part + 0.2
   new_noise     the frame's new nodes get twice their noises
+  new_noise_late  the same, three times their noises, but only on an
+                episode's frames after its 10th
   new_ungated   every eighth beam or pixel of a frame inserts a node,
                 the observation GP's verdict ignored
   new_shifted   the frame's new nodes move two cell sizes along x
@@ -82,6 +84,14 @@ def plant(fault: str):
         return nm._replace(noise=2.0 * nm.noise,
                            grad_noise=2.0 * nm.grad_noise)
 
+    def noise_late(self, nm):
+        # self.frame counts the frames since the map's reset, this one not
+        # yet: 10 is the 11th
+        if self.frame < 10:
+            return nm
+        return nm._replace(noise=3.0 * nm.noise,
+                           grad_noise=3.0 * nm.grad_noise)
+
     def ungated(self, nm):
         ok = nm.insert_ok.copy()
         ok[::8] = True
@@ -106,12 +116,13 @@ def plant(fault: str):
             yield
         return
 
-    change = dict(new_normals=normals, new_noise=noise, new_ungated=ungated,
+    change = dict(new_normals=normals, new_noise=noise,
+                  new_noise_late=noise_late, new_ungated=ungated,
                   new_shifted=shifted)[fault]
     with _newmeas(change):
         yield
 
 
 FAULTS = ("unchanged", "half_queries", "one_answer", "new_normals",
-          "new_noise", "new_ungated", "new_shifted", "reeval_skipped",
-          "reeval_shifted")
+          "new_noise", "new_noise_late", "new_ungated", "new_shifted",
+          "reeval_skipped", "reeval_shifted")

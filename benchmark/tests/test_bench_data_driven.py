@@ -28,12 +28,11 @@ def test_new_config_mix_and_metric_by_name(tmp_path):
         cfg = json.load(f)
     with open(os.path.join(b, "configs", "room2d.json"), "w") as f:
         json.dump(cfg, f)
-    # a traffic mix: the stream with every frame of the room's 3 captured
-    # (the first one too, so that a slow machine still checks one), one
-    # of them checked
+    # a traffic mix: the stream with one of its pairs' test() calls
+    # checked
     with open(os.path.join(b, "traffic", "stream.json")) as f:
         mix = json.load(f)
-    mix.update(captures_per_episode=3, checks=1)
+    mix.update(checks=1)
     with open(os.path.join(b, "traffic", "sparse_stream.json"), "w") as f:
         json.dump(mix, f)
     # a metric: its reader

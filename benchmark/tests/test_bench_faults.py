@@ -19,6 +19,8 @@ CASES = [
     ("new_normals", "tiny3d.stream", "new_grad"),
     ("new_noise", "room2d.stream", "new_noise"),
     ("new_noise", "tiny3d.stream", "new_noise"),
+    ("new_noise_late", "room2d.stream", "new_noise_p95"),
+    ("new_noise_late", "tiny3d.stream", "new_noise_p95"),
     ("new_ungated", "tiny3d.stream", "new_spurious"),
     ("new_shifted", "room2d.stream", "off_surface_m"),
     ("new_shifted", "tiny3d.query", "off_surface_m"),
@@ -30,14 +32,21 @@ CASES = [
 ]
 
 
-def _run(tmp_path, workload):
-    """A run long enough for a whole episode: the re-evaluation shows
-    only in a frame that finds a map (a stream's later frames)."""
-    bench = scratch_copy(tmp_path)
-    run, out = cpu_run(tmp_path, bench, workload, SEED,
-                       seconds=8.0 if workload.endswith(".stream") else 2.0)
-    if workload.endswith(".stream"):
-        assert run.items >= run.scene.n_frames, "no whole episode ran"
+# a fault of the late frames needs episodes that have them
+FRAMES = {"new_noise_late": 12}
+
+
+def _run(tmp_path, workload, frames=None):
+    """A run long enough for every frame of the check's pairs: the
+    re-evaluation shows only in a frame that finds a map (a stream's
+    later frames)."""
+    bench = scratch_copy(tmp_path, frames=frames)
+    stream = workload.endswith(".stream")
+    seconds = (8.0 if frames is None else 16.0) if stream else 2.0
+    run, out = cpu_run(tmp_path, bench, workload, SEED, seconds=seconds)
+    if stream:
+        assert len(run.captures) == len(run.pairs), \
+            "the window ended before the check's last pair"
     return out
 
 
@@ -55,6 +64,6 @@ def test_sound_runs_are_correct(tmp_path, workload):
 @pytest.mark.parametrize("fault,workload,number", CASES)
 def test_fault_is_not_correct(tmp_path, fault, workload, number):
     with faults.plant(fault):
-        out = _run(tmp_path, workload)
+        out = _run(tmp_path, workload, FRAMES.get(fault))
     assert not out["correct"]
     assert number in _failed(out), out["checks"]
