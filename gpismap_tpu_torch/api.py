@@ -38,7 +38,6 @@ from __future__ import annotations
 import functools
 import hashlib
 import os
-import time
 
 import numpy as np
 import torch
@@ -46,6 +45,7 @@ import torch
 from .config import (CAPACITY_2D, MAPPER_2D, OBSGP_1D, TREE_2D,
                      CapacityParam, MapperParam, ObsGPParam, TreeParam)
 from .models import cluster, mapper2d
+from .runtime import spans
 from .runtime.index import SpatialIndex
 
 
@@ -268,16 +268,35 @@ class _MapperBase:
         (frame_finish_full) run as its separate stages in the same
         order."""
         mcap = self.cap.gp_support
-        rt = self.index.collect_retrain(self.p.gp_radius_times, mcap,
-                                        self.cap.retrain_batch * 16)
+        with spans.span("retrain.collect"):
+            rt = self.index.collect_retrain(self.p.gp_radius_times, mcap,
+                                            self.cap.retrain_batch * 16)
         b = rt["n"]
         if rt["total"] > b:
             self.stats["retrain_truncated"] = rt["total"] - b
-        self._sync_mirror()
+        with spans.span("retrain.mirror"):
+            self._sync_mirror()
+        counts = rt["counts"][:b]
+        with spans.span("retrain.fit"):
+            fit_ls = self._fit_buckets(rt, counts)
+        with spans.span("retrain.grid"):
+            self.index.clear_active()
+            self._rebuild_grid()
+        self._nbrs = None       # `trained` is baked in: rebuilt at test()
+        with spans.span("retrain.refresh"):
+            self._refresh_factors(rt["slots"][:b], counts, fit_ls)
+
+    def _fit_buckets(self, rt: dict, counts: np.ndarray) -> list:
+        """Fit the retrain set rt (collect_retrain; counts its first rows'
+        support counts) bucket by bucket, in padded chunks. Returns
+        [(padded slot rows, fit Cholesky factor)] per chunk, empty where
+        the fits keep no factor (a mesh, or the mirror off)."""
+        b = len(counts)
+        mcap = self.cap.gp_support
+        spans.factorizations("chol", counts, self.dim)
         keep_l = self.mesh is None and self._mirror is not None
         lo = 8 if self.mesh is None else max(8, self.mesh.size)
-        fit_ls = []            # (padded slot rows, fit Cholesky factor)
-        counts = rt["counts"][:b]
+        fit_ls = []
         assigned = np.zeros(b, bool)
         for mb in self._retrain_buckets:
             selb = ~assigned if mb >= mcap else (~assigned) & (counts <= mb)
@@ -300,10 +319,7 @@ class _MapperBase:
                     fit_ls.append((slots, l))
                 else:
                     self._retrain_chunk(slots, sup)
-        self.index.clear_active()
-        self._rebuild_grid()
-        self._nbrs = None       # `trained` is baked in: rebuilt at test()
-        self._refresh_factors(rt["slots"][:b], counts, fit_ls)
+        return fit_ls
 
     def _retrain_chunk(self, slots: np.ndarray, sup: np.ndarray) -> None:
         """Fit one padded retrain chunk without keeping its Cholesky
@@ -362,18 +378,30 @@ class _MapperBase:
         per cell, OnGPIS.h), filled at the first test() after a change of
         the live slot set and refreshed by each retrain; None (per-call
         factorization) when the live cells exceed the cache bound."""
-        if self._factors is not None:
+        with spans.span("test.factors"):
+            if self._factors is not None:
+                return self._factors
+            live = self._live_slots()
+            if len(live) == 0 or len(live) > self.cap.test_active_cells:
+                return None
+            pad = np.full(self.cap.test_active_cells, -1, np.int32)
+            pad[:len(live)] = live
+            pad = self._t(pad)
+            self._count_factorizations(pad, "chol", "linv")
+            self._factors = cluster.factorize_slots(
+                self.store, pad, self.p.map_scale_param,
+                self.cap.test_active_cells)
+            self._factors_slots = live
             return self._factors
-        live = self._live_slots()
-        if len(live) == 0 or len(live) > self.cap.test_active_cells:
-            return None
-        pad = np.full(self.cap.test_active_cells, -1, np.int32)
-        pad[:len(live)] = live
-        self._factors = cluster.factorize_slots(
-            self.store, self._t(pad), self.p.map_scale_param,
-            self.cap.test_active_cells)
-        self._factors_slots = live
-        return self._factors
+
+    def _count_factorizations(self, slots: torch.Tensor, *kinds) -> None:
+        """While a profiler records, count the cells of the padded slot
+        rows `slots` (device; -1 pads) as handed to each of `kinds`, at
+        their supports in the store, on the device: no read-back."""
+        if spans.on():
+            m = self.store.valid[slots].sum(-1) * (slots >= 0)
+            for kind in kinds:
+                spans.factorizations(kind, m, self.dim)
 
     def _refresh_buckets(self) -> tuple:
         """The refresh sizes of update_factors: at most two groups, the
@@ -410,8 +438,10 @@ class _MapperBase:
             return
         linv_buf, uniq = old
         for slots, l in fit_ls:
+            slots = self._t(slots)
+            self._count_factorizations(slots, "linv")
             linv_buf = cluster.update_factors_from_l(
-                linv_buf, uniq, self._t(slots), l, d=self.dim)
+                linv_buf, uniq, slots, l, d=self.dim)
         if not fit_ls and len(retrained_slots):
             assigned = np.zeros(len(retrained_slots), bool)
             for mb in self._refresh_buckets():
@@ -423,8 +453,10 @@ class _MapperBase:
                 sl_np = retrained_slots[sel]
                 sl = np.full(_next_pow2(len(sl_np), lo=8), -1, np.int32)
                 sl[:len(sl_np)] = sl_np
+                sl = self._t(sl)
+                self._count_factorizations(sl, "chol", "linv")
                 linv_buf = cluster.update_factors(
-                    self.store, linv_buf, uniq, self._t(sl),
+                    self.store, linv_buf, uniq, sl,
                     self.p.map_scale_param, mb=mb)
         self._factors = (linv_buf, uniq)
 
@@ -484,15 +516,22 @@ class _MapperBase:
         if not self._use_nbr_table():
             self._nbrs = None
         elif self._nbrs is None:
-            self._build_nbrs()
+            with spans.span("test.candidates"):
+                self._build_nbrs()
+        # the queries go up before the factor-cache fill is enqueued: a
+        # copy from pageable memory waits for the device's queue
+        q = self._t(xq)
+        factors = self._get_factors()
         run = cluster.map_test if self.mesh is None else functools.partial(
             cluster.map_test_sharded, mesh=self.mesh)
         f, g, vf, vg, info = run(
-            self.store, self.grid, self._t(xq), factors=self._get_factors(),
+            self.store, self.grid, q, factors=factors,
             nbrs=self._nbrs, nbr_dense=self._nbr_dense,
             bf16=self._pallas_bf16(), **self._test_kwargs())
-        out = torch.cat([f[:, None], g, vf[:, None], vg], dim=-1)[:nq].cpu()
-        info = _to_numpy(info)
+        with spans.span("test.readback"):
+            out = torch.cat([f[:, None], g, vf[:, None], vg],
+                            dim=-1)[:nq].cpu()
+            info = _to_numpy(info)
         # candidates beyond cap.nbr_k a table row could not hold
         if self._nbrs is not None and int(self._nbrs.n_overflow):
             self.stats["nbr_overflow"] = int(self._nbrs.n_overflow)
@@ -555,59 +594,67 @@ class GPisMap2D(_MapperBase):
     def update(self, thetas: np.ndarray, ranges: np.ndarray,
                pose: np.ndarray) -> None:
         """Ingest one scan (GPisMap::update, GPisMap.cpp:151-167). Per-frame
-        counters and timings land in self.stats."""
-        t0 = time.time()
-        thetas = np.asarray(thetas, np.float32).reshape(-1)
-        ranges = np.asarray(ranges, np.float32).reshape(-1)
-        pose = np.asarray(pose, np.float32).reshape(-1)
-        tr = pose[:2]
-        rot = pose[2:6].reshape(2, 2, order="F")
+        counters land in self.stats."""
+        with spans.span("update.prep"):
+            thetas = np.asarray(thetas, np.float32).reshape(-1)
+            ranges = np.asarray(ranges, np.float32).reshape(-1)
+            pose = np.asarray(pose, np.float32).reshape(-1)
+            tr = pose[:2]
+            rot = pose[2:6].reshape(2, 2, order="F")
 
-        nb = _next_pow2(len(thetas))
-        th_p = np.zeros(nb, np.float32)
-        rg_p = np.zeros(nb, np.float32)     # padded beams: range 0, gated out
-        th_p[:len(thetas)] = thetas
-        rg_p[:len(ranges)] = ranges
-        # host range gate (the same as preprocess_2d's) for the in-view cull
-        validh = (rg_p > self.p.min_range) & (rg_p < self.p.max_range)
-        n_valid = int(validh.sum())
-        if n_valid <= 1:           # preproData failure (GPisMap.cpp:145-148)
-            return
-        rmax = float(rg_p[validh].max())
-        g_max = nb // self.op.group_size + 2
+            nb = _next_pow2(len(thetas))
+            th_p = np.zeros(nb, np.float32)
+            rg_p = np.zeros(nb, np.float32)  # padded beams: range 0, gated
+            th_p[:len(thetas)] = thetas
+            rg_p[:len(ranges)] = ranges
+            # host range gate (the same as preprocess_2d's) for the cull
+            validh = (rg_p > self.p.min_range) & (rg_p < self.p.max_range)
+            n_valid = int(validh.sum())
+            if n_valid <= 1:       # preproData failure (GPisMap.cpp:145-148)
+                return
+            rmax = float(rg_p[validh].max())
+            g_max = nb // self.op.group_size + 2
+            # with a mesh, new measurements of this rank's beams
+            rows = None if self.mesh is None else self.mesh.local_rows(nb)
 
-        # with a mesh, new measurements of this rank's beams
-        rows = None if self.mesh is None else self.mesh.local_rows(nb)
         if self.strict_reeval:
-            _, obs, nm = mapper2d.frame_compute_2d(
-                self._t(th_p), self._t(rg_p), self._t(tr), self._t(rot),
-                self.p, self.op, g_max=g_max, rows=rows)
-            for c in self._inview_cells(tr, rot, rmax):
-                self._reeval_apply(obs, self.index.cell_nodes(c), tr, rot)
+            with spans.span("update.frame"):
+                _, obs, nm = mapper2d.frame_compute_2d(
+                    self._t(th_p), self._t(rg_p), self._t(tr), self._t(rot),
+                    self.p, self.op, g_max=g_max, rows=rows)
+                nm = _to_numpy(self._gather(nm))
+            with spans.span("update.cull"):
+                cells = self._inview_cells(tr, rot, rmax)
+            for c in cells:
+                with spans.span("update.cull"):
+                    ids = self.index.cell_nodes(c)
+                self._reeval_apply(obs, ids, tr, rot)
         else:
-            node_ids = self._inview_node_ids(tr, rot, rmax)
-            sel, nvalid = _pad_ids(node_ids)
-            d = self.index.get_nodes(sel)
-            rv, nm = mapper2d.frame_update_2d(
-                self._t(th_p), self._t(rg_p), self._t(tr), self._t(rot),
-                *(self._shard(self._t(d[k])) for k in
-                  ("pos", "grad", "pos_sig", "grad_sig")),
-                self._shard(self._t(nvalid)), self.p, self.op, g_max=g_max,
-                rows=rows)
-            self._apply_reeval(node_ids, _to_numpy(self._gather(rv)))
-        nm = _to_numpy(self._gather(nm))
-        n_new = self._apply_newmeas(nm)
+            with spans.span("update.cull"):
+                node_ids = self._inview_node_ids(tr, rot, rmax)
+                sel, nvalid = _pad_ids(node_ids)
+                d = self.index.get_nodes(sel)
+            with spans.span("update.frame"):
+                rv, nm = mapper2d.frame_update_2d(
+                    self._t(th_p), self._t(rg_p), self._t(tr), self._t(rot),
+                    *(self._shard(self._t(d[k])) for k in
+                      ("pos", "grad", "pos_sig", "grad_sig")),
+                    self._shard(self._t(nvalid)), self.p, self.op,
+                    g_max=g_max, rows=rows)
+                rv = _to_numpy(self._gather(rv))
+                nm = _to_numpy(self._gather(nm))
+        with spans.span("update.replay"):
+            if not self.strict_reeval:
+                self._apply_reeval(node_ids, rv)
+            n_new = self._apply_newmeas(nm)
 
-        t1 = time.time()
         self._retrain_store()
         self.stats.update(
             frame=self.frame, n_valid_beams=n_valid,
             n_nodes=self.index.num_nodes,
             n_cluster_cells=int(self.index.max_slot),
             new_inserted=n_new,
-            support_overflow=int(self.index.overflow_count),
-            update_s=round(time.time() - t0, 4),
-            retrain_s=round(time.time() - t1, 4))
+            support_overflow=int(self.index.overflow_count))
         self.frame += 1
 
     def update_batch(self, frames) -> None:
@@ -650,14 +697,18 @@ class GPisMap2D(_MapperBase):
         mesh, of this rank's rows, all-gathered."""
         if len(node_ids) == 0:
             return
-        sel, valid = _pad_ids(node_ids)
-        d = self.index.get_nodes(sel)
-        rv = mapper2d.reeval_2d(
-            obs, *(self._shard(self._t(d[k])) for k in
-                   ("pos", "grad", "pos_sig", "grad_sig")),
-            self._shard(self._t(valid)), self._t(tr), self._t(rot), self.p,
-            self.op)
-        self._apply_reeval(node_ids, _to_numpy(self._gather(rv)))
+        with spans.span("update.cull"):
+            sel, valid = _pad_ids(node_ids)
+            d = self.index.get_nodes(sel)
+        with spans.span("update.reeval"):
+            rv = mapper2d.reeval_2d(
+                obs, *(self._shard(self._t(d[k])) for k in
+                       ("pos", "grad", "pos_sig", "grad_sig")),
+                self._shard(self._t(valid)), self._t(tr), self._t(rot),
+                self.p, self.op)
+            rv = _to_numpy(self._gather(rv))
+        with spans.span("update.replay"):
+            self._apply_reeval(node_ids, rv)
 
     # ------------------------------------------------------------------
     def _test_kwargs(self) -> dict:

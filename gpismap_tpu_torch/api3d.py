@@ -20,7 +20,6 @@ kernel's bf16 variance variant, on a CUDA mapper only) are read there.
 from __future__ import annotations
 
 import os
-import time
 from typing import Optional
 
 import numpy as np
@@ -31,6 +30,7 @@ from .config import (BIGBIRD_CAMS, CAPACITY_3D, MAPPER_3D, OBSGP_2D,
                      TREE_3D, YCB_CAMS, CameraParam, CapacityParam,
                      MapperParam, ObsGPParam, TreeParam)
 from .models import mapper3d, obsgp
+from .runtime import spans
 
 # queries per chunk of the observation-GP posterior gather on the card:
 # each gathers its cell's [64, 64] L^-1 (16 KiB), so a chunk moves 1 GiB
@@ -121,32 +121,33 @@ class GPisMap3D(_MapperBase):
     # ------------------------------------------------------------------
     def update(self, depth: np.ndarray, pose: np.ndarray) -> None:
         """Ingest one depth frame (GPisMap3::update, GPisMap3.cpp:218-237).
-        Per-frame counters and timings land in self.stats."""
-        t0 = time.time()
-        depth = np.asarray(depth, np.float32)
-        pose = np.asarray(pose, np.float32).reshape(-1)
-        tr = pose[:3]
-        rot = pose[3:12].reshape(3, 3, order="F")
-        nv, rmax = self._host_gate(depth)
-        if nv <= 1:
-            return
-        _, obs, nm = mapper3d.frame_compute_3d(
-            self._t(depth), self._t(tr), self._t(rot), self.cam, self.p,
-            self.op, chunk=self._obs_chunk, blocked=self._obs_blocked(),
-            nv_cap=self._obs_nv_cap(nv),
-            obs_c_cap=self._obs_cell_cap(self._last_valid_mask))
-        nm = _to_numpy(nm)
+        Per-frame counters land in self.stats."""
+        with spans.span("update.prep"):
+            depth = np.asarray(depth, np.float32)
+            pose = np.asarray(pose, np.float32).reshape(-1)
+            tr = pose[:3]
+            rot = pose[3:12].reshape(3, 3, order="F")
+            nv, rmax = self._host_gate(depth)
+            if nv <= 1:
+                return
+            blocked = self._obs_blocked()
+            nv_cap = self._obs_nv_cap(nv)
+            c_cap = self._obs_cell_cap(self._last_valid_mask)
+        with spans.span("update.frame"):
+            _, obs, nm = mapper3d.frame_compute_3d(
+                self._t(depth), self._t(tr), self._t(rot), self.cam, self.p,
+                self.op, chunk=self._obs_chunk, blocked=blocked,
+                nv_cap=nv_cap, obs_c_cap=c_cap)
+            nm = _to_numpy(nm)
         self._update_map_points(obs, rmax, tr, rot)
-        self._apply_newmeas(nm)
+        with spans.span("update.replay"):
+            self._apply_newmeas(nm)
 
-        t1 = time.time()
         self._retrain_store()
         self.stats.update(
             frame=self.frame, n_nodes=self.index.num_nodes,
             n_cluster_cells=int(self.index.max_slot),
-            support_overflow=int(self.index.overflow_count),
-            update_s=round(time.time() - t0, 4),
-            retrain_s=round(time.time() - t1, 4))
+            support_overflow=int(self.index.overflow_count))
         self.frame += 1
 
     def update_batch(self, frames) -> None:
@@ -250,71 +251,88 @@ class GPisMap3D(_MapperBase):
     def _update_map_points(self, obs, rmax: float, tr, rot) -> None:
         """Re-evaluate the nodes of the kept cells in the mapper's mode
         and apply the outcome on the host index."""
-        kept = self._cull_cells(rmax, tr, rot)
+        with spans.span("update.cull"):
+            kept = self._cull_cells(rmax, tr, rot)
         if len(kept) == 0:
             return
         if self.reeval_mode == "strict":
             for c in kept:
-                self._reeval_apply(obs, self.index.cell_nodes(c), tr, rot)
+                with spans.span("update.cull"):
+                    ids = self.index.cell_nodes(c)
+                self._reeval_apply(obs, ids, tr, rot)
         elif self.reeval_mode in ("fused", "hybrid"):
             disp = self._dispatch_reeval_fused(obs, kept, tr, rot)
             if disp is not None:
-                self._apply_reeval_fused(*disp)
+                with spans.span("update.replay"):
+                    self._apply_reeval_fused(*disp)
         else:
-            self._reeval_apply(
-                obs, np.concatenate([self.index.cell_nodes(c)
-                                     for c in kept]), tr, rot)
+            with spans.span("update.cull"):
+                ids = np.concatenate([self.index.cell_nodes(c)
+                                      for c in kept])
+            self._reeval_apply(obs, ids, tr, rot)
 
     def _reeval_apply(self, obs, node_ids, tr, rot) -> None:
         """reeval_3d of one node batch, applied on the host index; with a
         mesh, of this rank's rows, all-gathered."""
         if len(node_ids) == 0:
             return
-        sel, valid = _pad_ids(node_ids)
-        d = self.index.get_nodes(sel)
-        rv = mapper3d.reeval_3d(
-            obs, *(self._shard(self._t(d[k])) for k in
-                   ("pos", "grad", "pos_sig", "grad_sig")),
-            self._shard(self._t(valid)), self._t(tr), self._t(rot), self.p,
-            self.op, chunk=self._obs_chunk, compat=self.compat_reloc)
-        self._apply_reeval(node_ids, _to_numpy(self._gather(rv)))
+        with spans.span("update.cull"):
+            sel, valid = _pad_ids(node_ids)
+            d = self.index.get_nodes(sel)
+        with spans.span("update.reeval"):
+            rv = mapper3d.reeval_3d(
+                obs, *(self._shard(self._t(d[k])) for k in
+                       ("pos", "grad", "pos_sig", "grad_sig")),
+                self._shard(self._t(valid)), self._t(tr), self._t(rot),
+                self.p, self.op, chunk=self._obs_chunk,
+                compat=self.compat_reloc)
+            rv = _to_numpy(self._gather(rv))
+        with spans.span("update.replay"):
+            self._apply_reeval(node_ids, rv)
 
     def _dispatch_reeval_fused(self, obs, kept, tr, rot):
         """Gather the kept cells' nodes and run reeval_hybrid_3d
         ("hybrid") or reeval_scan_3d ("fused") on them. Returns
         (node_ids, Reeval3D on the host, n_dropped), or None when the
         cells hold no nodes."""
-        lists = [self.index.cell_nodes(c) for c in kept]
-        node_ids = np.concatenate(lists)
-        if len(node_ids) == 0:
-            return None
-        sel, valid = _pad_ids(node_ids)
-        d = self.index.get_nodes(sel)
-        centers, _, _ = self.index.cell_info(kept)
-        # "hybrid" pads the cells to a power of two; the scan of "fused"
-        # steps through the kept cells only (a padded one changes nothing)
-        cpad = (_next_pow2(len(kept), lo=8) if self.reeval_mode == "hybrid"
-                else len(kept))
-        cc = np.zeros((cpad, 3), np.int32)
-        cc[:len(kept)] = np.floor(centers / self.cell_size).astype(np.int32)
-        cok = np.zeros(cpad, bool)
-        cok[:len(kept)] = True
-        args = (obs, self._t(d["pos"]), self._t(d["grad"]),
-                self._t(d["pos_sig"]), self._t(d["grad_sig"]),
-                self._t(valid), self._t(cc), self._t(cok), self._t(tr),
-                self._t(rot), np.float32(self.cell_size), self.p, self.op)
-        kw = dict(chunk=self._obs_chunk, compat=self.compat_reloc)
-        if self.reeval_mode == "hybrid":
-            rv, drop = mapper3d.reeval_hybrid_3d(*args, **kw)
-        else:
-            # members a scan step takes: twice the largest cell at the
-            # start of the frame (for nodes relocated into it), at least
-            # 512 and at most every node (gpismap_tpu/api3d.py:371-381);
-            # the rest are counted in n_dropped
-            kc = min(max(_next_pow2(2 * max(len(li) for li in lists)), 512),
-                     _next_pow2(len(node_ids)))
-            rv, drop = mapper3d.reeval_scan_3d(*args, kc=kc, **kw)
-        return node_ids, _to_numpy(rv), drop
+        with spans.span("update.cull"):
+            lists = [self.index.cell_nodes(c) for c in kept]
+            node_ids = np.concatenate(lists)
+            if len(node_ids) == 0:
+                return None
+            sel, valid = _pad_ids(node_ids)
+            d = self.index.get_nodes(sel)
+            centers, _, _ = self.index.cell_info(kept)
+            # "hybrid" pads the cells to a power of two; the scan of
+            # "fused" steps through the kept cells only (a padded one
+            # changes nothing)
+            cpad = (_next_pow2(len(kept), lo=8)
+                    if self.reeval_mode == "hybrid" else len(kept))
+            cc = np.zeros((cpad, 3), np.int32)
+            cc[:len(kept)] = np.floor(centers / self.cell_size).astype(
+                np.int32)
+            cok = np.zeros(cpad, bool)
+            cok[:len(kept)] = True
+        with spans.span("update.reeval"):
+            args = (obs, self._t(d["pos"]), self._t(d["grad"]),
+                    self._t(d["pos_sig"]), self._t(d["grad_sig"]),
+                    self._t(valid), self._t(cc), self._t(cok), self._t(tr),
+                    self._t(rot), np.float32(self.cell_size), self.p,
+                    self.op)
+            kw = dict(chunk=self._obs_chunk, compat=self.compat_reloc)
+            if self.reeval_mode == "hybrid":
+                rv, drop = mapper3d.reeval_hybrid_3d(*args, **kw)
+            else:
+                # members a scan step takes: twice the largest cell at the
+                # start of the frame (for nodes relocated into it), at
+                # least 512 and at most every node
+                # (gpismap_tpu/api3d.py:371-381); the rest are counted in
+                # n_dropped
+                kc = min(max(_next_pow2(2 * max(len(li) for li in lists)),
+                             512), _next_pow2(len(node_ids)))
+                rv, drop = mapper3d.reeval_scan_3d(*args, kc=kc, **kw)
+            rv = _to_numpy(rv)
+        return node_ids, rv, drop
 
     def _apply_reeval_fused(self, node_ids, rv, drop) -> None:
         """Host apply of the re-evaluation's final per-node actions."""

@@ -37,6 +37,7 @@ import torch
 from ..config import CapacityParam
 from ..ops import gp, kernels, segmented
 from ..ops import tile_eval as tile_ops
+from ..runtime import spans
 
 _INT32_MAX = 2 ** 31 - 1
 
@@ -666,21 +667,23 @@ def map_test(store: ClusterStore, grid: torch.Tensor, q: torch.Tensor,
     Returns (f [Q], grad [Q, D], varf [Q], vargrad [Q, D], TestInfo).
     """
     nq, d = q.shape
-    if nbrs is not None:
-        top_slot, top_ok, n_cand = _candidates_top3(
-            nbrs, q, cell_size, grid_half, noff, search_half, nbr_dense)
-    else:
-        top_slot, top_ok, n_cand = _top3(*_grid_candidates(
-            grid, q, cell_size, grid_half, noff, search_half,
-            store.trained))
-    seg3 = torch.where(top_ok, top_slot, -1).to(torch.int32)  # [Q, 3]
+    with spans.span("test.candidates"):
+        if nbrs is not None:
+            top_slot, top_ok, n_cand = _candidates_top3(
+                nbrs, q, cell_size, grid_half, noff, search_half, nbr_dense)
+        else:
+            top_slot, top_ok, n_cand = _top3(*_grid_candidates(
+                grid, q, cell_size, grid_half, noff, search_half,
+                store.trained))
+        seg3 = torch.where(top_ok, top_slot, -1).to(torch.int32)  # [Q, 3]
 
     if factors is None:
-        u = torch.unique(torch.where(seg3 >= 0, seg3, _INT32_MAX))
-        uniq = u.new_full((max_active,), _INT32_MAX)
-        uniq[:min(len(u), max_active)] = u[:max_active]
-        slot_of = torch.where(uniq < _INT32_MAX, uniq, -1)
-        linv_buf = _factorize_cells(store, slot_of, scale)
+        with spans.span("test.factors"):
+            u = torch.unique(torch.where(seg3 >= 0, seg3, _INT32_MAX))
+            uniq = u.new_full((max_active,), _INT32_MAX)
+            uniq[:min(len(u), max_active)] = u[:max_active]
+            slot_of = torch.where(uniq < _INT32_MAX, uniq, -1)
+            linv_buf = _factorize_cells(store, slot_of, scale)
     else:
         linv_buf, uniq = factors
         slot_of = torch.where(uniq < _INT32_MAX, uniq, -1)
@@ -689,34 +692,49 @@ def map_test(store: ClusterStore, grid: torch.Tensor, q: torch.Tensor,
         """Plan and evaluate the pairs seg [P] (raw slots, -1 none; pair
         p belongs to query p // div). Slots absent from uniq are dropped
         and counted. Returns (f, g, vf, vg, n_dropped, n_pairs)."""
-        plan, n_in = segmented.plan_tiles_for_slots(seg, uniq, max_cells,
-                                                    max_active, tile)
-        out = _eval_pairs(store, linv_buf, slot_of, plan, seg.shape[0], q,
-                          div, scale, val_const, grad_const, bf16)
-        return out + ((torch.sum(seg >= 0) - n_in).to(torch.int32), n_in)
+        with spans.span("test.plan"):
+            plan, n_in = segmented.plan_tiles_for_slots(seg, uniq, max_cells,
+                                                        max_active, tile)
+        with spans.span("test.eval"):
+            out = _eval_pairs(store, linv_buf, slot_of, plan, seg.shape[0],
+                              q, div, scale, val_const, grad_const, bf16)
+            return out + ((torch.sum(seg >= 0) - n_in).to(torch.int32),
+                          n_in)
 
     if two_phase:
         f0, g0, vf0, vg0, nd1, np1 = run(seg3[:, 0].contiguous(), 1)
-        # the reference's blend gate (GPisMap.cpp:706): ranks 1-2 are
-        # consulted only when the nearest evaluation is uncertain; an
-        # unevaluated or dropped rank 0 (vf0 == inf) counts as uncertain
-        vf0m = torch.where(top_ok[:, 0], vf0, torch.inf)
-        uncertain = (n_cand >= 2) & ~(vf0m <= var_thre)
-        n_phase2 = torch.sum(uncertain).to(torch.int32)
-        seg12 = torch.where(uncertain[:, None], seg3[:, 1:], -1)
+        with spans.span("test.blend"):
+            # the reference's blend gate (GPisMap.cpp:706): ranks 1-2 are
+            # consulted only when the nearest evaluation is uncertain; an
+            # unevaluated or dropped rank 0 (vf0 == inf) counts as
+            # uncertain
+            vf0m = torch.where(top_ok[:, 0], vf0, torch.inf)
+            uncertain = (n_cand >= 2) & ~(vf0m <= var_thre)
+            n_phase2 = torch.sum(uncertain).to(torch.int32)
+            seg12 = torch.where(uncertain[:, None], seg3[:, 1:], -1)
         f12, g12, vf12, vg12, nd2, np2 = run(seg12.reshape(-1), 2)
-        f3 = torch.cat([f0[:, None], f12.reshape(nq, 2)], dim=1)
-        g3 = torch.cat([g0[:, None], g12.reshape(nq, 2, d)], dim=1)
-        vf3 = torch.cat([vf0[:, None], vf12.reshape(nq, 2)], dim=1)
-        vg3 = torch.cat([vg0[:, None], vg12.reshape(nq, 2, d)], dim=1)
-        n_dropped, n_pairs = nd1 + nd2, (np1 + np2).to(torch.int32)
+        with spans.span("test.blend"):
+            f3 = torch.cat([f0[:, None], f12.reshape(nq, 2)], dim=1)
+            g3 = torch.cat([g0[:, None], g12.reshape(nq, 2, d)], dim=1)
+            vf3 = torch.cat([vf0[:, None], vf12.reshape(nq, 2)], dim=1)
+            vg3 = torch.cat([vg0[:, None], vg12.reshape(nq, 2, d)], dim=1)
+            n_dropped, n_pairs = nd1 + nd2, (np1 + np2).to(torch.int32)
+            out = _blend(f3, g3, vf3, vg3, top_ok, n_cand, var_thre,
+                         default_var)
     else:
         f_p, g_p, vf_p, vg_p, n_dropped, n_pairs = run(seg3.reshape(-1), 3)
-        n_phase2 = torch.zeros((), dtype=torch.int32, device=q.device)
-        f3 = f_p.reshape(nq, 3)
-        g3 = g_p.reshape(nq, 3, d)
-        vf3 = vf_p.reshape(nq, 3)
-        vg3 = vg_p.reshape(nq, 3, d)
+        with spans.span("test.blend"):
+            n_phase2 = torch.zeros((), dtype=torch.int32, device=q.device)
+            out = _blend(f_p.reshape(nq, 3), g_p.reshape(nq, 3, d),
+                         vf_p.reshape(nq, 3), vg_p.reshape(nq, 3, d), top_ok,
+                         n_cand, var_thre, default_var)
+    return out + (TestInfo(n_dropped=n_dropped, n_pairs=n_pairs,
+                           n_phase2=n_phase2),)
+
+
+def _blend(f3, g3, vf3, vg3, top_ok, n_cand, var_thre, default_var):
+    """The selection and variance blend of each query's up-to-3 results
+    [Q, 3, ...] (GPisMap.cpp:685-758). Returns (f, grad, varf, vargrad)."""
     vf3 = torch.where(top_ok, vf3, torch.inf)
 
     # --- selection / blending (GPisMap.cpp:685-758) ---
@@ -786,8 +804,7 @@ def map_test(store: ClusterStore, grid: torch.Tensor, q: torch.Tensor,
     f_out = torch.where(bad, 0.0, f_out)
     g_out = torch.where(bad[:, None], 0.0, g_out)
     vg_out = torch.where(bad[:, None], 0.0, vg_out)
-    return f_out, g_out, vf_out, vg_out, TestInfo(
-        n_dropped=n_dropped, n_pairs=n_pairs, n_phase2=n_phase2)
+    return f_out, g_out, vf_out, vg_out
 
 
 def map_test_sharded(store: ClusterStore, grid: torch.Tensor,

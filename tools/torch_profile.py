@@ -11,7 +11,9 @@ subsample 2, 48 steps). Prints, for the update loop, the first test()
 cache fill included) and the hit rays' correction with its backward
 (alpha and scale, the cells factored anew): host wall time, summed
 device kernel time, the device's busy share (kernel time / wall; overlap
-ignored), and the top kernels and host ops.
+ignored), the host milliseconds of each of the mapper's stage spans
+(gpismap_tpu_torch/runtime/spans.py, live under the profiler), and the
+top kernels and host ops.
 
 Usage: python3 tools/torch_profile.py [--3d]    (needs CUDA)
 """
@@ -25,6 +27,9 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+from gpismap_tpu_torch.runtime.spans import PREFIX  # noqa: E402
+
 TOP = 10          # kernels and host ops listed per phase
 
 
@@ -35,11 +40,18 @@ def _dev_us(e) -> float:
 
 def report(name: str, prof, wall_s: float) -> None:
     events = prof.key_averages()
-    # device-side events only: host ops also carry their kernels' time
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    # device-side events only: host ops also carry their kernels' time;
+    # the stage spans' mirrors on the device's timeline are not kernels
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.key.startswith(PREFIX)]
     dev_ms = sum(_dev_us(e) for e in kernels) / 1e3
     print(f"{name}: wall {wall_s * 1e3:.1f} ms, device kernels "
           f"{dev_ms:.1f} ms, busy share {dev_ms / (wall_s * 1e3):.3f}")
+    stages = [e for e in events if e.device_type == DeviceType.CPU
+              and e.key.startswith(PREFIX)]
+    for e in sorted(stages, key=lambda e: e.cpu_time_total, reverse=True):
+        print(f"  span {e.cpu_time_total / 1e3:7.2f} ms  x{e.count:<5d} "
+              f"{e.key}")
     for e in sorted(kernels, key=_dev_us, reverse=True)[:TOP]:
         print(f"  dev {_dev_us(e) / 1e3:8.2f} ms  x{e.count:<5d} "
               f"{e.key[:90]}")
@@ -54,7 +66,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_profile: needs a CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import torch_scenes
     from chip_smoke import correction_backward
@@ -79,19 +90,14 @@ def main() -> int:
     m.reset()
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    host = {"frame": 0.0, "retrain": 0.0}
     with profile(activities=acts) as prof:
         torch.cuda.synchronize()
         t0 = time.time()
         for f in frames:
             m.update(*f)
-            host["frame"] += m.stats["update_s"] - m.stats["retrain_s"]
-            host["retrain"] += m.stats["retrain_s"]
         torch.cuda.synchronize()
         wall = time.time() - t0
-    report(f"update x{len(frames)} ({m.num_nodes} nodes; per-frame "
-           f"stages {host['frame'] * 1e3:.1f} ms, retrain "
-           f"{host['retrain'] * 1e3:.1f} ms)", prof, wall)
+    report(f"update x{len(frames)} ({m.num_nodes} nodes)", prof, wall)
     for name in ("test (first: factor cache fill)", "test (warm)"):
         with profile(activities=acts) as prof:
             torch.cuda.synchronize()
