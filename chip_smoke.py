@@ -10,7 +10,12 @@ production shapes:
   of the cluster GPs at MP <= 384; GPisMap2D(device="cuda").update on 28
   synthetic 1081-beam LiDAR frames, test() on the 49,551-point 0.1 m
   demo grid, then the last frame once more to drive the factor-cache
-  refresh from the fits' own Cholesky factors. When $GPISMAP_DATA holds
+  refresh from the fits' own Cholesky factors. Phase 4b: the 2D frame
+  kernel (csrc/obsgp1d_frame.cu, one launch a frame for the re-evaluation
+  and the new measurements) against its plain versions on every frame of
+  phase 4 (tests/torch_frame_checks.py), timed, and the update's frame
+  stage profiled: its torch operations, kernel launches and its one
+  device-to-host copy. When $GPISMAP_DATA holds
   the bundled gazebo sequence (2D/gazebo1.mat), the 28 demo frames of the
   real sequence replace the synthetic ones, and the run says so.
 
@@ -447,6 +452,7 @@ def kernel_entry(name, replaces, launches_by_path, err, ms, plain_ms, bnd,
         ("tile_eval_backward",
          "gpismap_tpu_torch/csrc/tile_eval_backward.cu"),
         ("tile_eval", "gpismap_tpu_torch/csrc/tile_eval.cu"),
+        ("obsgp1d_frame", "gpismap_tpu_torch/csrc/obsgp1d_frame.cu"),
         ("", "gpismap_tpu_torch/csrc/chol.cu")) if name.startswith(key))
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces,
@@ -481,7 +487,8 @@ def ptxas_lines(name: str, log: str):
                 ("chol_update_kernel", "chol_update_kernel"),
                 ("linv_diag_kernel", "linv_diag_kernel"),
                 ("linv_merge_ca_kernel", "linv_merge_ca_kernel"),
-                ("linv_merge_x_kernel", "linv_merge_x_kernel"))
+                ("linv_merge_x_kernel", "linv_merge_x_kernel"),
+                ("obsgp1d_frame_kernel", "obsgp1d_frame_kernel"))
                 if key in line), name)
         if "registers" in line or "spill" in line or "smem" in line:
             out.append(f"ptxas ({fn}): {line.strip()}")
@@ -596,6 +603,133 @@ def check_surface(m, torch_scenes):
     if flip < SIGN_FLOOR_3D:
         fail(f"SDF sign flips across the surface in only {flip} of the "
              f"probes")
+
+
+def frame_stage_counts(m, frame):
+    """The torch operations, kernel launches and device-to-host copies
+    that the 2D update's frame stage (span gpismap.update.frame) issues
+    on one update(frame), from a torch.profiler trace: (ops, launches,
+    d2h), None where the trace shows no such event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        m.update(*frame)
+        torch.cuda.synchronize()
+    evs = prof.events()
+    spans_ = [e for e in evs if e.name == "gpismap.update.frame"]
+    if not spans_:
+        return None, None, None
+    sp = spans_[0]
+    t0, t1 = sp.time_range.start, sp.time_range.end
+
+    def within(e):
+        return t0 <= e.time_range.start and e.time_range.end <= t1
+
+    cpu = [e for e in evs if e.device_type == DeviceType.CPU and within(e)]
+    ops = sum(1 for e in cpu if e.cpu_parent is sp)
+    launches = sum(1 for e in cpu if e.name.startswith(("cudaLaunchKernel",
+                                                         "cuLaunchKernel")))
+    d2h = sum(1 for e in evs if e.device_type == DeviceType.CUDA
+              and "DtoH" in e.name and within(e))
+    return ops, launches, d2h
+
+
+def d2h_copies(fn) -> int:
+    """Device-to-host copies on the card while fn() runs, from a
+    torch.profiler trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == DeviceType.CUDA and "DtoH" in e.name)
+
+
+def run_frame_kernel(card, calls, m, frame, mapper2d, frame_ops):
+    """Phase 4b: the 2D frame kernel (csrc/obsgp1d_frame.cu) against the
+    plain versions (reeval_2d_reference, newmeas_2d_reference) on the
+    card, on the arguments of every frame_update_2d of phase 4 (1,081
+    beams padded to 2,048, g_max 104, nodes padded to a power of two),
+    held to tests/torch_frame_checks.check_frame; timed at the last
+    frame's shapes; then the frame stage of one more update() of m
+    profiled: its torch operations, kernel launches and device-to-host
+    copies, one for the results beside the obs-GP fit's own. Returns the
+    kernels line's numbers."""
+    import torch_frame_checks as fc
+    from gpismap_tpu_torch.models import obsgp
+
+    worst = {}
+    for args, kwargs in calls:
+        got = mapper2d.frame_update_2d(*args, g_max=kwargs["g_max"])
+        want = fc.plain_frame(args, kwargs["g_max"])
+        c = fc.compare_frame(got, want, args[8].cpu().numpy())
+        try:
+            fc.check_frame(c)
+        except AssertionError:
+            fail(f"phase 4b: the frame kernel disagrees with the plain "
+                 f"versions: {c}")
+        for k, v in c.items():
+            if isinstance(v, float):
+                worst[k] = (min if "agree" in k else max)(worst.get(k, v), v)
+    th, rg, tr, rot, pos, grad, ps, gs, valid, mp, op = calls[-1][0]
+    prep = mapper2d.preprocess_2d(th, rg, tr, rot, mp)
+    obs = obsgp.fit_obsgp1d(prep.theta, prep.f, prep.valid, op,
+                            g_max=calls[-1][1]["g_max"])
+    nodes = (pos, grad, ps, gs, valid)
+    beams = mapper2d._beams(prep)
+    ms = cuda_ms(lambda: mapper2d._frame_kernel(obs, nodes, beams, tr, rot,
+                                                 mp, op), 200)
+    plain_ms = cuda_ms(lambda: (
+        mapper2d.reeval_2d_reference(obs, *nodes, tr, rot, mp, op),
+        mapper2d.newmeas_2d_reference(obs, prep, rot, mp, op)), 10)
+    k, n = pos.shape[0], th.shape[0]
+    g, mm = obs.x.shape[0], obs.x.shape[1]
+    rv, _ = mapper2d.frame_update_2d(*calls[-1][0],
+                                     g_max=calls[-1][1]["g_max"])
+    # posteriors: 1 + steps + 4 a node, 5 a beam; each m K* entries
+    # (difference, square, sqrt, scale, exp), the mean (2 m), L^-1 K*
+    # (2 m^2) and its squared norm (2 m)
+    evals = 5 * (k + n) + int(rv.steps.sum())
+    flops = evals * (2 * mm * mm + 9 * mm)
+    # read once: the groups' x, valid, alpha, L^-1, trained, bounds, the
+    # nodes' and beams' inputs; written once: the packed frame
+    nbytes = (g * mm * 9 + g * mm * mm * 4 + g + (g + 1) * 4
+              + k * (25 + 4 * frame_ops.NODE_WORDS)
+              + n * (25 + 4 * frame_ops.BEAM_WORDS))
+    bnd = bound(flops, nbytes)
+    ops, launches, d2h = frame_stage_counts(m, frame)
+    print(f"phase 4b: 2D frame kernel vs the plain versions on {len(calls)} "
+          f"frames: action agreement {worst['action_agree']:.4f} (steps "
+          f"{worst['steps_agree']:.4f}), insert agreement "
+          f"{worst['insert_agree']:.4f}; on the re-inserted nodes max abs "
+          f"pos {worst['pos']:.3g} grad {worst['grad']:.3g}, relative noise "
+          f"{worst['noise']:.3g} grad_noise {worst['grad_noise']:.3g}; on "
+          f"the inserted beams grad {worst['new_grad']:.3g} noise "
+          f"{worst['new_noise']:.3g} grad_noise {worst['new_grad_noise']:.3g}"
+          f"; at K={k} N={n} G={g} M={mm}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}); the update's "
+          f"frame stage: {ops} torch ops, {launches} kernel launches, {d2h} "
+          f"device-to-host copies ({card})", flush=True)
+    # the obs-GP fit's own copies (torch.linalg.cholesky's error check)
+    # apart, the frame stage reads its results back in one copy
+    fit_d2h = d2h_copies(lambda: obsgp.fit_obsgp1d(
+        prep.theta, prep.f, prep.valid, op, g_max=calls[-1][1]["g_max"]))
+    print(f"  the obs-GP fit alone: {fit_d2h} device-to-host copies",
+          flush=True)
+    if d2h is not None and d2h - fit_d2h != 1:
+        fail(f"phase 4b: the frame stage made {d2h} device-to-host copies, "
+             f"the obs-GP fit {fit_d2h}")
+    err = max(worst[k] for k in ("pos", "grad", "new_pos", "new_grad"))
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound=bnd,
+                stage_ops=ops, stage_launches=launches, stage_d2h=d2h,
+                fit_d2h=fit_d2h,
+                action_agree=worst["action_agree"],
+                insert_agree=worst["insert_agree"])
 
 
 def run_3d(card, torch_scenes, chol_ops, tile_ops, cluster, convert):
@@ -1781,8 +1915,10 @@ def run_modes(card, frames2d, grid, gazebo, frames3d, volume, res3d,
     """Phase 15: 2D strict_reeval=True on the 2D frames, 3D "strict",
     "fused" and "snapshot" on the 40 frames, each against the default
     mode's map (in 3D phase 12b's, whose test() of the volume is res3d).
-    Returns each mode's update->test launches."""
+    Returns each mode's update->test launches, and the strict 2D mode's
+    frame kernel launches (strict_2d_frame)."""
     from gpismap_tpu_torch import GPisMap2D, GPisMap3D
+    from gpismap_tpu_torch.ops import obsgp1d_frame as frame_ops
 
     t_phase = time.time()
     n_mode = {}
@@ -1801,11 +1937,14 @@ def run_modes(card, frames2d, grid, gazebo, frames3d, volume, res3d,
         if m.dim == 3:
             m.set_camera(1, "bigbird")
         counts(tile_ops, chol_ops, reset=True)
+        frames0 = frame_ops.launches
         torch.cuda.synchronize()
         t0 = time.time()
         m.update_batch(frames)
         torch.cuda.synchronize()
         t_upd = time.time() - t0
+        if key == "strict_2d":
+            n_mode["strict_2d_frame"] = frame_ops.launches - frames0
         res = m.test(q)
         n = np.asarray(counts(tile_ops, chol_ops))
         var_col = 3 if m.dim == 2 else 4
@@ -2593,8 +2732,9 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import torch_scenes
     from gpismap_tpu_torch import GPisMap2D, GPisMap3D, convert, render
-    from gpismap_tpu_torch.models import cluster
+    from gpismap_tpu_torch.models import cluster, mapper2d
     from gpismap_tpu_torch.ops import chol as chol_ops
+    from gpismap_tpu_torch.ops import obsgp1d_frame as frame_ops
     from gpismap_tpu_torch.ops import tile_eval as tile_ops
     from gpismap_tpu_torch.runtime import checkpoint
     from gpismap_tpu_torch.runtime import index as index_mod
@@ -2615,16 +2755,17 @@ def main() -> int:
               "tile_eval": tile_ops.build_library,
               "tile_eval_bf16": tile_ops.build_library_bf16,
               "tile_eval_backward": tile_ops.build_library_backward,
-              "chol": chol_ops.build_library}
+              "chol": chol_ops.build_library,
+              "obsgp1d_frame": frame_ops.build_library}
     with ThreadPoolExecutor(len(builds)) as ex:
         futures = {name: ex.submit(fn) for name, fn in builds.items()}
         logs = {name: f.result() for name, f in futures.items()}
-    print(f"phase 2: built the index, tile, bf16 tile, tile backward and "
-          f"chol kernel libraries in {time.time() - t0:.1f} s with nvcc "
-          f"({nvcc_version()})", flush=True)
+    print(f"phase 2: built the index, tile, bf16 tile, tile backward, "
+          f"chol and 2D frame kernel libraries in {time.time() - t0:.1f} s "
+          f"with nvcc ({nvcc_version()})", flush=True)
     ptx = {name: ptxas_lines(name, logs[name])
            for name in ("tile_eval", "tile_eval_bf16", "tile_eval_backward",
-                        "chol")}
+                        "chol", "obsgp1d_frame")}
 
     dev = torch.device("cuda")
     gazebo = torch_scenes.gazebo_path()
@@ -2684,15 +2825,18 @@ def main() -> int:
     # ---- phase 4: the main path at full size ----
     m = GPisMap2D(device=dev)
     by_size = BySize(chol_ops).__enter__()    # to phase 5's update
-    with Capture(tile_ops, "tile_eval") as cap:
+    with Capture(tile_ops, "tile_eval") as cap, \
+            Capture(mapper2d, "frame_update_2d") as cap_frame:
         tile_ops.launches = tile_ops.launches_bf16 = 0
         chol_ops.chol_launches = chol_ops.linv_launches = 0
+        frame_ops.launches = 0
         torch.cuda.synchronize()
         t0 = time.time()
         m.update_batch(frames)
         torch.cuda.synchronize()
         t_update = time.time() - t0
         upd = (chol_ops.chol_launches, chol_ops.linv_launches)
+        frame_launches = frame_ops.launches
         chol_ops.chol_launches = chol_ops.linv_launches = 0
         t0 = time.time()
         res = m.test(grid)
@@ -2715,6 +2859,9 @@ def main() -> int:
           f"test ({card})", flush=True)
     if launches < 1:
         fail("test() did not launch the tile kernel")
+    if frame_launches != len(frames):
+        fail(f"the 2D update launched the frame kernel {frame_launches} "
+             f"times on {len(frames)} frames")
     if tile_ops.launches_bf16:
         fail("the default 2D path launched the bf16 tile kernel")
     if upd[0] + first[0] < 1 or upd[1] + first[1] < 1:
@@ -2813,6 +2960,14 @@ def main() -> int:
     if d_refresh.max() > KERNEL_TOL:
         fail(f"test() through the refreshed cache differs by "
              f"{d_refresh.max()}")
+
+    # ---- phase 4b: the frame kernel on phase 4's frames; the frame
+    # stage's launches and copies on a mapper of its own ----
+    m4b = GPisMap2D(device=dev)
+    m4b.update_batch(frames[:-1])
+    r4b = run_frame_kernel(card, cap_frame.calls, m4b, frames[-1], mapper2d,
+                           frame_ops)
+    del m4b, cap_frame
 
     # ---- phases 6-8: the 3D path ----
     r3 = run_3d(card, torch_scenes, chol_ops, tile_ops, cluster, convert)
@@ -2977,6 +3132,20 @@ def main() -> int:
             plain="autograd through tile_eval_reference",
             ptxas=[ln for ln in ptx["tile_eval_backward"]
                    if f"d={dd})" in ln]))
+    kernels.append(kernel_entry(
+        "obsgp1d_frame (2D frame)",
+        "none: the JAX package computes this stage in XLA "
+        "(gpismap_tpu/models/mapper2d.py: reeval_2d, newmeas_2d)",
+        {"update_test": frame_launches,
+         "strict_2d_update_test": n15["strict_2d_frame"]},
+        r4b["err"], r4b["ms"], r4b["plain_ms"], r4b["bound"], None,
+        plain="reeval_2d_reference + newmeas_2d_reference",
+        action_agree=r4b["action_agree"], insert_agree=r4b["insert_agree"],
+        frame_stage={"torch_ops": r4b["stage_ops"],
+                     "launches": r4b["stage_launches"],
+                     "d2h_copies": r4b["stage_d2h"],
+                     "fit_d2h_copies": r4b["fit_d2h"]},
+        ptxas=ptx["obsgp1d_frame"]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

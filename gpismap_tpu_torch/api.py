@@ -625,24 +625,35 @@ class GPisMap2D(_MapperBase):
                 nm = _to_numpy(self._gather(nm))
             with spans.span("update.cull"):
                 cells = self._inview_cells(tr, rot, rmax)
+            steps = 0
             for c in cells:
                 with spans.span("update.cull"):
                     ids = self.index.cell_nodes(c)
-                self._reeval_apply(obs, ids, tr, rot)
+                steps += self._reeval_apply(obs, ids, tr, rot)
         else:
             with spans.span("update.cull"):
                 node_ids = self._inview_node_ids(tr, rot, rmax)
                 sel, nvalid = _pad_ids(node_ids)
                 d = self.index.get_nodes(sel)
             with spans.span("update.frame"):
-                rv, nm = mapper2d.frame_update_2d(
-                    self._t(th_p), self._t(rg_p), self._t(tr), self._t(rot),
-                    *(self._shard(self._t(d[k])) for k in
-                      ("pos", "grad", "pos_sig", "grad_sig")),
-                    self._shard(self._t(nvalid)), self.p, self.op,
-                    g_max=g_max, rows=rows)
-                rv = _to_numpy(self._gather(rv))
-                nm = _to_numpy(self._gather(nm))
+                args = ((self._t(th_p), self._t(rg_p), self._t(tr),
+                         self._t(rot))
+                        + tuple(self._shard(self._t(d[k])) for k in
+                                ("pos", "grad", "pos_sig", "grad_sig"))
+                        + (self._shard(self._t(nvalid)), self.p, self.op))
+                if self.mesh is None:
+                    # the frame's outputs in one packed buffer, read back
+                    # in one copy and split on the host
+                    buf = mapper2d.frame_update_2d(*args, g_max=g_max,
+                                                   packed=True)
+                    rv, nm = mapper2d.unpack_frame_2d(buf.cpu().numpy(),
+                                                      len(sel), nb)
+                else:
+                    rv, nm = mapper2d.frame_update_2d(*args, g_max=g_max,
+                                                      rows=rows)
+                    rv = _to_numpy(self._gather(rv))
+                    nm = _to_numpy(self._gather(nm))
+            steps = int(rv.steps[:len(node_ids)].sum())
         with spans.span("update.replay"):
             if not self.strict_reeval:
                 self._apply_reeval(node_ids, rv)
@@ -651,7 +662,7 @@ class GPisMap2D(_MapperBase):
         self._retrain_store()
         self.stats.update(
             frame=self.frame, n_valid_beams=n_valid,
-            n_nodes=self.index.num_nodes,
+            n_nodes=self.index.num_nodes, reeval_steps=steps,
             n_cluster_cells=int(self.index.max_slot),
             new_inserted=n_new,
             support_overflow=int(self.index.overflow_count))
@@ -691,12 +702,13 @@ class GPisMap2D(_MapperBase):
             return np.zeros(0, np.int32)
         return np.concatenate([self.index.cell_nodes(c) for c in cells])
 
-    def _reeval_apply(self, obs, node_ids, tr, rot) -> None:
+    def _reeval_apply(self, obs, node_ids, tr, rot) -> int:
         """reeval_2d of one cell's nodes against the frame's observation
         GP, applied on the host index (the strict mode's step); with a
-        mesh, of this rank's rows, all-gathered."""
+        mesh, of this rank's rows, all-gathered. Returns the nodes'
+        re-localization steps."""
         if len(node_ids) == 0:
-            return
+            return 0
         with spans.span("update.cull"):
             sel, valid = _pad_ids(node_ids)
             d = self.index.get_nodes(sel)
@@ -709,6 +721,7 @@ class GPisMap2D(_MapperBase):
             rv = _to_numpy(self._gather(rv))
         with spans.span("update.replay"):
             self._apply_reeval(node_ids, rv)
+        return int(rv.steps[:len(node_ids)].sum())
 
     # ------------------------------------------------------------------
     def _test_kwargs(self) -> dict:

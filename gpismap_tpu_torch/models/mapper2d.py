@@ -15,14 +15,25 @@ sequential pipeline (GPisMap.cpp:151-572) as batched tensor stages:
 Loops over nodes/beams are tensor axes; the 10-step re-localization runs
 in lockstep with per-node break masks (the reference's break conditions).
 The host runtime applies the implied tree mutations in reference order.
+
+reeval_2d and newmeas_2d run their plain versions (reeval_2d_reference,
+newmeas_2d_reference) for CPU tensors and one CUDA kernel for CUDA
+tensors (ops/obsgp1d_frame.py, csrc/obsgp1d_frame.cu), with no fallback
+from one to the other; frame_update_2d issues both stages as that one
+launch. The kernel writes a frame's outputs into one packed buffer
+(NODE_WORDS a node, then BEAM_WORDS a beam), which pack_frame_2d builds
+from the plain versions' outputs and unpack_frame_2d splits, on the
+device or on the host.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..config import MapperParam, ObsGPParam
+from ..ops import obsgp1d_frame
 from . import obsgp
 
 # refinement-loop iteration cap and occupancy gates
@@ -78,6 +89,7 @@ class Reeval2D(NamedTuple):
     grad_noise: torch.Tensor  # [K]
     dbl_pos_sig: torch.Tensor   # [K] doubled noises (action 1)
     dbl_grad_sig: torch.Tensor  # [K]
+    steps: torch.Tensor       # [K] int32 re-localization steps taken
 
 
 def reeval_2d(obs: obsgp.ObsGP1DState, pos: torch.Tensor, grad: torch.Tensor,
@@ -85,7 +97,23 @@ def reeval_2d(obs: obsgp.ObsGP1DState, pos: torch.Tensor, grad: torch.Tensor,
               valid: torch.Tensor, tr: torch.Tensor, rot: torch.Tensor,
               mp: MapperParam, op: ObsGPParam,
               chunk: int = 1024) -> Reeval2D:
-    """Batched reEvalPoints (GPisMap.cpp:235-455)."""
+    """Batched reEvalPoints (GPisMap.cpp:235-455): reeval_2d_reference for
+    CPU tensors, the kernel for CUDA tensors (views of its packed
+    buffer)."""
+    if pos.device.type == "cpu":
+        return reeval_2d_reference(obs, pos, grad, pos_sig, grad_sig, valid,
+                                   tr, rot, mp, op, chunk)
+    nodes = (pos, grad, pos_sig, grad_sig, valid)
+    return unpack_frame_2d(_frame_kernel(obs, nodes, None, tr, rot, mp, op),
+                           pos.shape[0], 0)[0]
+
+
+def reeval_2d_reference(obs: obsgp.ObsGP1DState, pos: torch.Tensor,
+                        grad: torch.Tensor, pos_sig: torch.Tensor,
+                        grad_sig: torch.Tensor, valid: torch.Tensor,
+                        tr: torch.Tensor, rot: torch.Tensor, mp: MapperParam,
+                        op: ObsGPParam, chunk: int = 1024) -> Reeval2D:
+    """Plain version of reeval_2d, on any device."""
     k = pos.shape[0]
     off = pos.new_tensor(mp.sensor_offset)
 
@@ -108,7 +136,9 @@ def reeval_2d(obs: obsgp.ObsGP1DState, pos: torch.Tensor, grad: torch.Tensor,
     abs_oc = torch.abs(oc)
     r_new = r
     cont = active & (abs_oc > _OCC_STOP)
+    steps = torch.zeros(k, dtype=torch.int32, device=pos.device)
     for _ in range(_RELOC_ITERS):
+        steps = steps + cont
         step = torch.where(oc[:, None] < 0, 1.0, -1.0) * grad_loc * dx[:, None]
         x_new = torch.where(cont[:, None], x_new + step, x_new)
         rinv0_n, var_n, r_t = obs_at(x_new)
@@ -186,7 +216,8 @@ def reeval_2d(obs: obsgp.ObsGP1DState, pos: torch.Tensor, grad: torch.Tensor,
     # reference's updateNoise(2*psig, 2*gsig), GPisMap.cpp:354-357)
     return Reeval2D(action=action.to(torch.int32), pos=pos_out,
                     grad=grad_out, noise=noise_out, grad_noise=gnoise_out,
-                    dbl_pos_sig=2.0 * pos_sig, dbl_grad_sig=2.0 * grad_sig)
+                    dbl_pos_sig=2.0 * pos_sig, dbl_grad_sig=2.0 * grad_sig,
+                    steps=steps)
 
 
 class NewMeas2D(NamedTuple):
@@ -200,7 +231,20 @@ class NewMeas2D(NamedTuple):
 def newmeas_2d(obs: obsgp.ObsGP1DState, prep: Preproc2D, rot: torch.Tensor,
                mp: MapperParam, op: ObsGPParam,
                chunk: int = 1024) -> NewMeas2D:
-    """Batched evalPoints (GPisMap.cpp:466-572).
+    """Batched evalPoints (GPisMap.cpp:466-572): newmeas_2d_reference for
+    CPU tensors, the kernel for CUDA tensors (views of its packed
+    buffer)."""
+    if prep.theta.device.type == "cpu":
+        return newmeas_2d_reference(obs, prep, rot, mp, op, chunk)
+    buf = _frame_kernel(obs, None, _beams(prep), None, rot, mp, op)
+    return unpack_frame_2d(buf, 0, prep.theta.shape[0])[1]
+
+
+def newmeas_2d_reference(obs: obsgp.ObsGP1DState, prep: Preproc2D,
+                         rot: torch.Tensor, mp: MapperParam, op: ObsGPParam,
+                         chunk: int = 1024) -> NewMeas2D:
+    """Plain version of newmeas_2d (evalPoints, GPisMap.cpp:466-572), on
+    any device.
 
     The reference inserts each candidate before probing and removes it
     if a probe fails (GPisMap.cpp:490-534); probe outcomes do not depend
@@ -248,6 +292,68 @@ def newmeas_2d(obs: obsgp.ObsGP1DState, prep: Preproc2D, rot: torch.Tensor,
                      grad_noise=torch.where(hasg, gnoise_g, 1.0))
 
 
+# the packed frame (the kernel's output layout, ops/obsgp1d_frame.py): per
+# node [action, pos (2), grad (2), noise, grad_noise, dbl_pos_sig,
+# dbl_grad_sig, steps], then per beam [insert_ok, pos (2), grad (2),
+# noise, grad_noise], float32 words; action, steps and insert_ok (0/1) are
+# int32 bits, so insert_ok's first byte is its bool (little-endian)
+NODE_WORDS = obsgp1d_frame.NODE_WORDS
+BEAM_WORDS = obsgp1d_frame.BEAM_WORDS
+
+
+def pack_frame_2d(rv: Reeval2D, nm: NewMeas2D) -> torch.Tensor:
+    """The packed frame of the plain versions' outputs (the kernel's
+    layout, bit for bit), on their device."""
+    i32 = torch.int32
+
+    def words(cols):
+        return torch.cat([(c if c.dim() == 2 else c[:, None]).view(i32)
+                          for c in cols], 1).reshape(-1)
+
+    return torch.cat([
+        words((rv.action, rv.pos, rv.grad, rv.noise, rv.grad_noise,
+               rv.dbl_pos_sig, rv.dbl_grad_sig, rv.steps)),
+        words((nm.insert_ok.to(i32), nm.pos, nm.grad, nm.noise,
+               nm.grad_noise))]).view(torch.float32)
+
+
+def unpack_frame_2d(buf, k: int, n: int):
+    """Split a packed frame of k nodes and n beams (a torch tensor on any
+    device, or a numpy array) into (Reeval2D, NewMeas2D) views of it."""
+    if isinstance(buf, torch.Tensor):
+        i32, u8, b8 = torch.int32, torch.uint8, torch.bool
+    else:
+        i32, u8, b8 = np.int32, np.uint8, np.bool_
+    nodes = buf[:k * NODE_WORDS].reshape(k, NODE_WORDS)
+    beams = buf[k * NODE_WORDS:k * NODE_WORDS + n * BEAM_WORDS].reshape(
+        n, BEAM_WORDS)
+    rv = Reeval2D(action=nodes[:, 0].view(i32), pos=nodes[:, 1:3],
+                  grad=nodes[:, 3:5], noise=nodes[:, 5],
+                  grad_noise=nodes[:, 6], dbl_pos_sig=nodes[:, 7],
+                  dbl_grad_sig=nodes[:, 8], steps=nodes[:, 9].view(i32))
+    nm = NewMeas2D(insert_ok=beams.view(u8)[:, 0].view(b8),
+                   pos=beams[:, 1:3], grad=beams[:, 3:5], noise=beams[:, 5],
+                   grad_noise=beams[:, 6])
+    return rv, nm
+
+
+def _frame_kernel(obs, nodes, beams, tr, rot, mp, op) -> torch.Tensor:
+    """The packed frame of the nodes and beams, from the kernel."""
+    return obsgp1d_frame.frame_2d(obs, nodes, beams, tr, rot, mp, op,
+                                  _RELOC_ITERS, _OCC_STOP)
+
+
+def _beams(prep: Preproc2D):
+    """The kernel's beam tensors of the preprocessed beams."""
+    return (prep.valid, prep.theta, prep.rng, prep.xy_local, prep.xy_global)
+
+
+def _rows(prep: Preproc2D, rows: slice | None) -> Preproc2D:
+    """The beams in rows (all of them for None)."""
+    return prep if rows is None else Preproc2D(
+        *(x[rows] if x.dim() else x for x in prep))
+
+
 def frame_compute_2d(theta: torch.Tensor, rng: torch.Tensor,
                      tr: torch.Tensor, rot: torch.Tensor, mp: MapperParam,
                      op: ObsGPParam, g_max: int, chunk: int = 1024,
@@ -259,9 +365,7 @@ def frame_compute_2d(theta: torch.Tensor, rng: torch.Tensor,
     Returns (Preproc2D, ObsGP1DState, NewMeas2D)."""
     prep = preprocess_2d(theta, rng, tr, rot, mp)
     obs = obsgp.fit_obsgp1d(prep.theta, prep.f, prep.valid, op, g_max=g_max)
-    beams = prep if rows is None else Preproc2D(
-        *(x[rows] if x.dim() else x for x in prep))
-    nm = newmeas_2d(obs, beams, rot, mp, op, chunk)
+    nm = newmeas_2d(obs, _rows(prep, rows), rot, mp, op, chunk)
     return prep, obs, nm
 
 
@@ -270,13 +374,22 @@ def frame_update_2d(theta: torch.Tensor, rng: torch.Tensor, tr: torch.Tensor,
                     node_grad: torch.Tensor, node_ps: torch.Tensor,
                     node_gs: torch.Tensor, node_valid: torch.Tensor,
                     mp: MapperParam, op: ObsGPParam, g_max: int,
-                    chunk: int = 1024, rows: slice | None = None):
+                    chunk: int = 1024, rows: slice | None = None,
+                    packed: bool = False):
     """The whole per-frame device compute: preprocess, obs-GP fit,
     re-evaluation of the host-gathered in-view nodes, and
-    new-measurement evaluation of the beams in rows (frame_compute_2d).
-    Returns (Reeval2D, NewMeas2D)."""
-    _, obs, nm = frame_compute_2d(theta, rng, tr, rot, mp, op, g_max, chunk,
-                                  rows)
-    rv = reeval_2d(obs, node_pos, node_grad, node_ps, node_gs, node_valid,
-                   tr, rot, mp, op, chunk)
-    return rv, nm
+    new-measurement evaluation of the beams in rows (None: all of them).
+    On CUDA tensors both stages are one kernel launch. Returns
+    (Reeval2D, NewMeas2D), or with packed=True their packed frame
+    (pack_frame_2d's layout)."""
+    prep = preprocess_2d(theta, rng, tr, rot, mp)
+    obs = obsgp.fit_obsgp1d(prep.theta, prep.f, prep.valid, op, g_max=g_max)
+    beams = _rows(prep, rows)
+    nodes = (node_pos, node_grad, node_ps, node_gs, node_valid)
+    if theta.device.type == "cpu":
+        nm = newmeas_2d_reference(obs, beams, rot, mp, op, chunk)
+        rv = reeval_2d_reference(obs, *nodes, tr, rot, mp, op, chunk)
+        return pack_frame_2d(rv, nm) if packed else (rv, nm)
+    buf = _frame_kernel(obs, nodes, _beams(beams), tr, rot, mp, op)
+    return buf if packed else unpack_frame_2d(buf, node_pos.shape[0],
+                                              beams.theta.shape[0])
